@@ -203,6 +203,9 @@ def main(argv=None):
     if cmd not in COMMANDS:
         print(__doc__)
         raise SystemExit(f"unknown command: {cmd}")
+    from qnx.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     return COMMANDS[cmd](rest)
 
 

@@ -1,24 +1,9 @@
-"""Scaling-efficiency benchmark: 1 chip -> 1 host -> N hosts
-(BASELINE.json target: >= 0.85 images/s scaling efficiency at N hosts).
+"""Multi-device scaling check: the REAL sharded int8 serving path on 1, 2,
+4 and 8 devices, checked bit-exact against one device.
 
-Only ONE physical chip exists in this environment (SURVEY.md §7.4 item 5),
-so this module reports three honestly-labeled tiers instead of fabricating
-pod numbers:
-
-1. ``measured``   — single-chip engine throughput (the bench.py headline);
-2. ``virtual``    — functional scaling on an N-virtual-CPU-device mesh:
-   the REAL sharded code path (same shard_map/GSPMD programs a pod would
-   run), checked for bit-exactness vs single-device, with relative step
-   times reported but explicitly marked non-representative of TPU timing;
-3. ``model``      — an analytic ICI/DCN cost model of the serving design:
-   * DP (batch sharding) at inference has NO inter-chip collectives — each
-     chip runs the full packed model on its batch shard; efficiency is
-     bounded only by host->chip input streaming (PCIe/DCN), modeled here;
-   * TP (output-channel sharding) pays one activation all-gather per layer
-     boundary, overlapped with GEMM compute by the ring schedule in
-     qnx.parallel.overlap; the model computes per-layer compute time at the
-     measured int8 rate vs ring-hop transfer time at ICI link bandwidth and
-     reports efficiency with and without overlap.
+On the CPU test mesh (virtual devices) this is a functional check and its
+step times are CPU times, not device metrics.  Device scaling numbers come
+from a run on the cards.
 
 Run ``python -m qnx.bench.scaling`` for the JSON report.
 """
@@ -32,15 +17,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# interconnect peaks (v5e, per chip): 4 ICI links in the 2D torus,
-# ~45 GB/s usable per direction per link; DCN/host ingress ~ 25 GB/s
-ICI_LINK_BYTES = 45e9
-ICI_LINKS = 4
-DCN_HOST_BYTES = 25e9
-INT8_MACS = 197e12   # qnx.bench.roofline.V5E_PEAKS
-MEASURED_ENGINE_EFF = 0.63  # end-to-end int8 engine fraction of MXU peak
-                            # (bench.py: 4.8 ms vs 3.05 ms SoL at batch 1024)
-
 
 def vgg_layers(width: int = 128):
     """(h, w, cin, cout) per quantized conv layer of the CIFAR VGG."""
@@ -52,74 +28,10 @@ def vgg_layers(width: int = 128):
     ]
 
 
-def tp_efficiency_model(tp: int, batch: int = 1024, width: int = 128,
-                        overlap: bool = True) -> dict:
-    """Analytic TP scaling of the int8 VGG engine over an ICI ring.
-
-    Output-channel sharding: each layer computes its N/tp channels locally
-    from the full activation tensor; the activations it produces (int8
-    codes, B*h*w*N/tp bytes) must be all-gathered before the next layer.
-    The ring all-gather moves (tp-1)/tp of the tensor through each chip's
-    ICI; with the collective-matmul schedule each hop hides behind 1/tp of
-    the layer's GEMM.
-    """
-    t_comp_total, t_exposed_total, t_ag_total = 0.0, 0.0, 0.0
-    for (h, w, cin, cout) in vgg_layers(width):
-        macs = batch * h * w * 9 * cin * cout / tp
-        t_comp = macs / (INT8_MACS * MEASURED_ENGINE_EFF)
-        act_bytes = batch * h * w * cout  # int8 codes produced by the layer
-        # ring all-gather: tp-1 hops, each moving act_bytes/tp per link pair
-        t_ag = (tp - 1) * (act_bytes / tp) / ICI_LINK_BYTES if tp > 1 else 0.0
-        if overlap:
-            # each hop hides behind one chunk (1/tp) of the next layer's GEMM
-            t_hop = (act_bytes / tp) / ICI_LINK_BYTES
-            t_chunk = t_comp / tp
-            t_exposed = max(0.0, (t_hop - t_chunk)) * (tp - 1)
-        else:
-            t_exposed = t_ag
-        t_comp_total += t_comp
-        t_ag_total += t_ag
-        t_exposed_total += t_exposed
-    t1 = sum(batch * h * w * 9 * cin * cout
-             for (h, w, cin, cout) in vgg_layers(width)) / (
-                 INT8_MACS * MEASURED_ENGINE_EFF)
-    t_tp = t_comp_total + t_exposed_total
-    return {
-        "tp": tp,
-        "t_1chip_ms": round(t1 * 1e3, 3),
-        "t_tp_ms": round(t_tp * 1e3, 3),
-        "t_allgather_ms": round(t_ag_total * 1e3, 3),
-        "t_exposed_ms": round(t_exposed_total * 1e3, 3),
-        "efficiency": round(t1 / (tp * t_tp), 3),
-        "overlap": overlap,
-    }
-
-
-def dp_efficiency_model(n_chips: int, batch_per_chip: int = 1024,
-                        width: int = 128) -> dict:
-    """DP serving: zero inter-chip collectives; bound = input streaming.
-
-    Each chip needs batch_per_chip * 32*32*3 f32 bytes per step; a host
-    feeds 4-8 chips over ~DCN_HOST_BYTES. Efficiency = compute / max(
-    compute, feed) assuming 8 chips/host (worst case for ingress)."""
-    macs = batch_per_chip * sum(
-        h * w * 9 * cin * cout for (h, w, cin, cout) in vgg_layers(width))
-    t_comp = macs / (INT8_MACS * MEASURED_ENGINE_EFF)
-    feed_bytes = batch_per_chip * 32 * 32 * 3 * 4
-    t_feed = feed_bytes * 8 / DCN_HOST_BYTES  # 8 chips share one host NIC
-    return {
-        "n_chips": n_chips,
-        "t_compute_ms": round(t_comp * 1e3, 3),
-        "t_feed_ms_per_chip": round(t_feed * 1e3, 3),
-        "efficiency": round(min(1.0, t_comp / max(t_comp, t_feed)), 3),
-        "note": "no collectives at inference; bound is host ingress",
-    }
-
-
 def measure_virtual_mesh(width: int = 32, batch: int = 64) -> list[dict]:
-    """Run the REAL TP-sharded int8 forward on 1/2/4/8 virtual devices,
-    assert exactness vs single-device, report relative step times
-    (CPU-mesh timing — functional validation, NOT TPU-representative)."""
+    """Run the REAL TP-sharded int8 forward on 1/2/4/8 devices, check
+    exactness vs single-device, report host-clock step times (on virtual
+    CPU devices: functional validation only)."""
     from qnx.convert.pack_model import pack_int8
     from qnx.models.factory import init_model
     from qnx.nn.int8_engine import i8_forward
@@ -157,20 +69,14 @@ def measure_virtual_mesh(width: int = 32, batch: int = 64) -> list[dict]:
             "devices": n,
             "mesh": dict(mesh.shape),
             "exact_vs_1dev": exact,
-            "step_ms_cpu_mesh": round(dt * 1e3, 2),
-            "note": "virtual CPU mesh: functional check, timing not TPU",
+            "platform": jax.devices()[0].platform,
+            "step_ms": round(dt * 1e3, 2),
         })
     return rows
 
 
 def main(argv=None):
-    report = {
-        "dp_model": [dp_efficiency_model(n) for n in (1, 8, 16, 64)],
-        "tp_model": [tp_efficiency_model(tp) for tp in (1, 2, 4, 8)]
-        + [tp_efficiency_model(8, overlap=False)],
-    }
-    if jax.default_backend() == "cpu" and jax.device_count() >= 2:
-        report["virtual_mesh"] = measure_virtual_mesh()
+    report = {"mesh": measure_virtual_mesh()}
     for section, rows in report.items():
         print(f"## {section}", file=sys.stderr)
         for r in rows:

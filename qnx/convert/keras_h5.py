@@ -26,7 +26,6 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass
 
-import h5py
 import numpy as np
 
 from qnx.ops.quant import glorot_scale
@@ -55,7 +54,7 @@ def _classify(arrays) -> str:
     return "other"
 
 
-def _read_legacy(f: h5py.File) -> list[LayerVars]:
+def _read_legacy(f) -> list[LayerVars]:
     root = f["model_weights"] if "model_weights" in f else f
     layer_names = [
         n.decode() if isinstance(n, bytes) else n
@@ -115,7 +114,7 @@ def _check_chaining(compute: list[LayerVars], bns: list[LayerVars]) -> None:
                 f"BN interleaving reconstruction is wrong for this file")
 
 
-def _read_keras3(f: h5py.File) -> list[LayerVars]:
+def _read_keras3(f) -> list[LayerVars]:
     layers_group = f["layers"]
     named = []
     for lname in layers_group:
@@ -147,6 +146,8 @@ def _read_keras3(f: h5py.File) -> list[LayerVars]:
 
 def read_keras_h5(path: str) -> list[LayerVars]:
     """Read a Keras HDF5 weights file into an ordered layer list."""
+    import h5py  # optional: only the Keras import path needs it
+
     with h5py.File(path, "r") as f:
         if "layers" in f:
             return _read_keras3(f)
@@ -258,6 +259,8 @@ def write_legacy_h5(path: str, layers: list[tuple[str, list[tuple[str, np.ndarra
     """Write a legacy Keras-1/2-format weights file (layer_names /
     weight_names attrs). Used by tests to mint reference-shaped artifacts
     and as a migration utility."""
+    import h5py
+
     with h5py.File(path, "w") as f:
         f.attrs["layer_names"] = np.array(
             [n.encode() for n, _ in layers], dtype="S64")

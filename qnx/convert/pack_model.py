@@ -42,8 +42,8 @@ def _ternary_pattern(latent: np.ndarray, h: float, style: str):
     latent = np.asarray(latent, np.float32)
     if style == "dingke":
         wc = np.clip(latent, -h, h).astype(np.float32)
-        r = (wc / np.float32(h)).astype(np.float32)
-        t = np.where(r > 0.5, 1.0, np.where(r <= -0.5, -1.0, 0.0))
+        half = np.float32(0.5) * np.float32(h)
+        t = np.where(wc > half, 1.0, np.where(wc <= -half, -1.0, 0.0))
         return t.astype(np.float32), h
     delta = 0.7 * np.mean(np.abs(latent), dtype=np.float32)
     mask = np.abs(latent) > delta
@@ -461,7 +461,7 @@ def pack_vgg_bitplane(variables: dict, cf: Config) -> I.PlaneVGG:
 
 
 def pack_int8(variables: dict, cf: Config):
-    """Lower a trained model into the INT8-MXU engine
+    """Lower a trained model into the int8 engine
     (:mod:`qnx.nn.int8_engine`) — same integer semantics as the packed
     popcount engine.  Handles every quantized ``network_type``:
 
@@ -509,6 +509,21 @@ def pack_int8(variables: dict, cf: Config):
         bias = _np(params[name]["bias"]) if "bias" in params[name] else None
         h = float(quant[name]["H"]) if name in quant else None
         return latent, h, bias
+
+    xmax = 1 if act in ("pm1", "zo") else 2 ** (nb - 1) - 1
+
+    def conv_w8(pattern):
+        """int8 conv weights; their sums must stay below EXACT_F32_INT,
+        which the int8 conv's float32 output holds exactly."""
+        bound = int(np.prod(pattern.shape[:3])) * xmax * int(
+            np.max(np.abs(pattern), initial=0))
+        if bound >= E.EXACT_F32_INT:
+            raise ValueError(
+                f"int8 conv sums up to {bound} >= 2**24 are not exact "
+                f"through its float32 output (wbits={cf.wbits}, "
+                f"abits={cf.abits}, width {pattern.shape}); lower the bit "
+                "widths or the width")
+        return jnp.asarray(pattern.astype(np.int8))
 
     def pattern_alpha(latent, h):
         if cf.network_type in ("full-tnn", "tnn"):
@@ -586,8 +601,8 @@ def pack_int8(variables: dict, cf: Config):
             latent, h, bias = get(f"conv_{i}")
             pattern, alpha = pattern_alpha(latent, h)
             sgn, tau = fold_hidden(bn_of(f"bn_conv_{i}"), alpha, bias)
-            convs.append(E.I8Conv(w8=jnp.asarray(pattern.astype(np.int8)),
-                                  sgn=sgn, tau=tau, act=act, pool=i % 2 == 1))
+            convs.append(E.I8Conv(w8=conv_w8(pattern), sgn=sgn, tau=tau,
+                                  act=act, pool=i % 2 == 1))
         denses = []
         for j in range(2):
             latent, h, bias = get(f"dense_{j}")

@@ -3,8 +3,11 @@
 
 The reference's ``K.conv2d`` on fake-quant weights becomes (SURVEY.md §2.4
 "XNOR conv"): patches of channel-packed sign bits are gathered by shifted
-slicing (pure XLA data movement), reduced by the packed GEMM kernels, and
-corrected for 'SAME' zero-padding.
+slicing (pure XLA data movement), reduced by a packed popcount GEMM, and
+corrected for 'SAME' zero-padding.  :func:`conv_rows` / :func:`corr_rows`
+lay patches and correction out for the fused kernel
+(:func:`qnx.kernels.popcount.popcount_matmul`), with a 2x2 pool as four row
+sets, one per window offset.
 
 Zero-padding correction (SURVEY.md §7.4 item 3): a zero pad is a third
 symbol in the ±1 domain.  We pad the *packed* input with 0-bits, which
@@ -27,9 +30,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from qnx.ops.packing import packed_len
-from .xnor_gemm import xnor_gemm_popcount
-from .ternary_gemm import ternary_gemm
+from qnx.ops.reference import xnor_gemm_ref
+from .popcount import popcount_matmul
 
 Array = jax.Array
 
@@ -48,6 +50,54 @@ def extract_packed_patches(xp: Array, kh: int, kw: int) -> Array:
         for dx in range(kw)
     ]
     return jnp.concatenate(taps, axis=-1)
+
+
+def _window_sets(a: Array, pool: bool) -> Array:
+    """(..., H, W, C) -> (Q, rows, C): Q = 1, or Q = 4 row sets, one per
+    2x2 window offset (dy, dx), each in pooled (h/2, w/2) row order."""
+    *lead, h, w, c = a.shape
+    if not pool:
+        return a.reshape(1, -1, c)
+    a = a.reshape(*lead, h // 2, 2, w // 2, 2, c)
+    nl = len(lead)
+    order = (nl + 1, nl + 3, *range(nl), nl, nl + 2, nl + 4)
+    return a.transpose(order).reshape(4, -1, c)
+
+
+def conv_rows(xp: Array, pool: bool) -> Array:
+    """(B, H, W, Cw) packed words -> (Q, B*H'*W', 9*Cw) 3x3 'SAME' patch
+    rows for :func:`qnx.kernels.popcount.popcount_matmul`."""
+    return _window_sets(extract_packed_patches(xp, 3, 3), pool)
+
+
+def corr_rows(corr: Array, pool: bool) -> Array:
+    """(H, W, N) border correction -> (Q*H'*W', N), matching
+    :func:`conv_rows` row sets (row m of set q reads corr[q*R + m % R])."""
+    return _window_sets(corr, pool).reshape(-1, corr.shape[-1])
+
+
+def conv_codes(xp: Array, w: Array, base, corr: Array, sgn: Array,
+               tau: Array, *, sign: Array | None = None,
+               pool: bool = False) -> Array:
+    """Fused packed 3x3 'SAME' conv + border correction (+ 2x2 max pool of
+    the conv output) + threshold, one kernel call.
+
+    Args:
+      xp: (B, H, W, Cw) int32 channel-packed sign bits.
+      w: (9*Cw, N) packed weights, tap-major (:func:`pack_conv_weights_np`);
+        the mask plane for ternary weights, with ``sign`` the sign plane.
+      base: K = 9*C_in (binary) or (N,) nnz (ternary).
+      corr: (H, W, N) int32 zero-pad correction (:func:`padding_correction`).
+      sgn, tau: (N,) int32 threshold direction / integer threshold.
+    Returns:
+      (B, H', W', N) int8 ±1 codes; H' = H/2, W' = W/2 when ``pool``.
+    """
+    b, h, wd, _ = xp.shape
+    code = popcount_matmul(conv_rows(xp, pool), w, base, sign=sign,
+                           corr=corr_rows(corr, pool), sgn=sgn, tau=tau)
+    if pool:
+        h, wd = h // 2, wd // 2
+    return code.reshape(b, h, wd, -1)
 
 
 def pack_conv_weights_np(pattern: np.ndarray):
@@ -103,23 +153,12 @@ def padding_correction(pattern: np.ndarray, h: int, w: int) -> np.ndarray:
 
 
 def xnor_conv(xp: Array, wp: Array, k: int, corr: Array,
-              kh: int = 3, kw: int = 3, **gemm_kw) -> Array:
+              kh: int = 3, kw: int = 3) -> Array:
     """Packed binary 'SAME' conv, stride 1: (B,H,W,Cw) x (kh*kw*Cw, N) ->
     exact zero-pad conv output (B,H,W,N) int32."""
     b, h, w, _ = xp.shape
     patches = extract_packed_patches(xp, kh, kw)
-    s = xnor_gemm_popcount(
-        patches.reshape(b * h * w, -1), wp, k, **gemm_kw
-    ).reshape(b, h, w, -1)
+    s = xnor_gemm_ref(patches.reshape(b * h * w, -1), wp, k
+                      ).reshape(b, h, w, -1)
     return s + corr[None]
 
-
-def ternary_conv(xp: Array, mask: Array, sign: Array, nnz: Array, corr: Array,
-                 kh: int = 3, kw: int = 3, **gemm_kw) -> Array:
-    """Packed ternary-weight 'SAME' conv, stride 1 (two-plane popcount)."""
-    b, h, w, _ = xp.shape
-    patches = extract_packed_patches(xp, kh, kw)
-    s = ternary_gemm(
-        patches.reshape(b * h * w, -1), mask, sign, nnz, **gemm_kw
-    ).reshape(b, h, w, -1)
-    return s + corr[None]

@@ -2,7 +2,7 @@
 // popcount-GEMM oracle, multithreaded C++ exposed through a plain C ABI
 // (loaded via ctypes — no pybind11 in this environment).
 //
-// Role (SURVEY.md §2.4 "sharded serving loop"): the TPU owns all model
+// Role (SURVEY.md §2.4 "sharded serving loop"): the device owns all model
 // math; the host owns the serving data plane — decoding/normalizing image
 // streams and packing bits for debug/converter paths. Those are the
 // CPU-bound steps of the continuous-batching feeder (qnx.serve.engine),

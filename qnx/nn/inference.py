@@ -1,6 +1,6 @@
 """Packed-integer inference engine: pure ``params -> images -> logits``.
 
-The TPU-native replacement for the reference's fake-quant ``model.predict``
+The replacement for the reference's fake-quant ``model.predict``
 (SURVEY.md §3.2: the reference has NO inference engine — this is the
 north-star component).  A packed model is a pytree of int32 packed weights +
 integer thresholds; the forward pass is a chain of
@@ -11,9 +11,14 @@ with float math only at the first layer (real-valued images in) and the
 logit head (affine epilogue out).  Everything is jit-compatible; no layer
 objects at inference (SURVEY.md §7.5).
 
-Layer pytrees are ``flax.struct`` nodes so a whole model jits as one
-argument; static shape metadata (true reduction length k) lives in
-non-pytree fields.
+Layer pytrees are frozen dataclasses (:mod:`qnx.utils.struct`) so a whole
+model jits as one argument; static shape metadata (true reduction length k)
+lives in static fields.
+
+Binary hidden layers run the fused popcount kernel
+(:func:`qnx.kernels.popcount.popcount_matmul`); the logits heads (N = 10
+classes) and the bitplane engine use the plain formulations of
+:mod:`qnx.ops.reference`.
 """
 from __future__ import annotations
 
@@ -21,12 +26,13 @@ from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from qnx.kernels.ternary_gemm import ternary_gemm
-from qnx.kernels.xnor_gemm import xnor_gemm_popcount
-from qnx.ops.packing import pack_bits_mxu
+from qnx.kernels.popcount import popcount_matmul
+from qnx.kernels.xnor_conv import conv_codes, extract_packed_patches
+from qnx.ops import reference as R
+from qnx.ops.packing import pack_bits, pack_bits_mxu
 from qnx.ops.quant import REFERENCE_PRECISION
+from qnx.utils.struct import pytree_dataclass, static
 
 Array = jax.Array
 
@@ -35,13 +41,14 @@ Array = jax.Array
 # layer pytrees
 # ---------------------------------------------------------------------------
 
-class FloatDenseBits(struct.PyTreeNode):
+@pytree_dataclass
+class FloatDenseBits:
     """Float-input layer producing sign bits: y = x@w (+bias) -> BN -> y>0.
 
     ``w`` is already quantized (e.g. ±H) but stored dense f32 because the
-    input is real-valued; BN is replicated with flax.linen semantics
-    ((x-mean)*rsqrt(var+eps)*scale + bias) for bit-exactness vs the
-    fake-quant golden model."""
+    input is real-valued; BN is replicated with the training layers'
+    semantics ((x-mean)*rsqrt(var+eps)*scale + bias) for bit-exactness vs
+    the fake-quant golden model."""
 
     w: Array                     # (K, N) f32
     bias: Any                    # (N,) f32 or None
@@ -49,7 +56,7 @@ class FloatDenseBits(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
+    bn_eps: float = static(1e-4)
 
     def __call__(self, x: Array) -> Array:
         y = jnp.matmul(x, self.w, precision=REFERENCE_PRECISION)
@@ -60,23 +67,24 @@ class FloatDenseBits(struct.PyTreeNode):
         return pack_bits_mxu(z, axis=-1)
 
 
-class PackedDenseBits(struct.PyTreeNode):
+@pytree_dataclass
+class PackedDenseBits:
     """Binary hidden layer: fused popcount GEMM + integer threshold kernel
-    (int8 codes out of VMEM; only the 1-bit repack runs in XLA)."""
+    (int8 codes out; only the 1-bit repack runs in XLA)."""
 
     wp: Array                    # (Kw, N) int32 packed
     sgn: Array                   # (N,) int32 in {+1,-1}
     tau: Array                   # (N,) int32
-    k: int = struct.field(pytree_node=False, default=0)
+    k: int = static(0)
 
     def __call__(self, bits: Array) -> Array:
-        from qnx.kernels.xnor_conv_fused import xnor_gemm_fused
-
-        code = xnor_gemm_fused(bits, self.wp, self.k, self.sgn, self.tau)
+        code = popcount_matmul(bits, self.wp, self.k, sgn=self.sgn,
+                                 tau=self.tau)
         return pack_bits_mxu(code, axis=-1)
 
 
-class TernaryDenseBits(struct.PyTreeNode):
+@pytree_dataclass
+class TernaryDenseBits:
     """Ternary hidden layer: fused two-plane popcount GEMM + threshold."""
 
     mask: Array                  # (Kw, N) int32
@@ -86,27 +94,27 @@ class TernaryDenseBits(struct.PyTreeNode):
     tau: Array
 
     def __call__(self, bits: Array) -> Array:
-        from qnx.kernels.xnor_conv_fused import ternary_gemm_fused
-
-        code = ternary_gemm_fused(bits, self.mask, self.sign, self.nnz,
-                                  self.sgn, self.tau)
+        code = popcount_matmul(bits, self.mask, self.nnz, sign=self.sign,
+                                 sgn=self.sgn, tau=self.tau)
         return pack_bits_mxu(code, axis=-1)
 
 
-class PackedDenseLogits(struct.PyTreeNode):
+@pytree_dataclass
+class PackedDenseLogits:
     """Binary output head: popcount GEMM + float affine -> logits."""
 
     wp: Array
     a: Array                     # (N,) f32
     c: Array                     # (N,) f32
-    k: int = struct.field(pytree_node=False, default=0)
+    k: int = static(0)
 
     def __call__(self, bits: Array) -> Array:
-        s = xnor_gemm_popcount(bits, self.wp, self.k)
+        s = R.xnor_gemm_ref(bits, self.wp, self.k)
         return self.a[None, :] * s.astype(jnp.float32) + self.c[None, :]
 
 
-class TernaryDenseLogits(struct.PyTreeNode):
+@pytree_dataclass
+class TernaryDenseLogits:
     """Ternary output head."""
 
     mask: Array
@@ -116,11 +124,12 @@ class TernaryDenseLogits(struct.PyTreeNode):
     c: Array
 
     def __call__(self, bits: Array) -> Array:
-        s = ternary_gemm(bits, self.mask, self.sign, self.nnz)
+        s = R.ternary_gemm_ref(bits, self.mask, self.sign, self.nnz)
         return self.a[None, :] * s.astype(jnp.float32) + self.c[None, :]
 
 
-class FloatDenseLogits(struct.PyTreeNode):
+@pytree_dataclass
+class FloatDenseLogits:
     """Float output head (last_layer_float configs): logits = BN(x@w + b)."""
 
     w: Array
@@ -129,7 +138,7 @@ class FloatDenseLogits(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
+    bn_eps: float = static(1e-4)
 
     def __call__(self, bits_as_pm1: Array) -> Array:
         y = jnp.matmul(bits_as_pm1, self.w, precision=REFERENCE_PRECISION)
@@ -139,7 +148,8 @@ class FloatDenseLogits(struct.PyTreeNode):
         return (y - self.bn_mean) * mul + self.bn_bias
 
 
-class FloatConvBits(struct.PyTreeNode):
+@pytree_dataclass
+class FloatConvBits:
     """Float first conv layer: f32 conv (+bias) -> BN -> sign bits packed
     along channels. Optional 2x2 maxpool BEFORE BN (BinaryNet ordering)."""
 
@@ -149,8 +159,8 @@ class FloatConvBits(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
-    pool: bool = struct.field(pytree_node=False, default=False)
+    bn_eps: float = static(1e-4)
+    pool: bool = static(False)
 
     def __call__(self, x: Array) -> Array:
         y = jax.lax.conv_general_dilated(
@@ -176,22 +186,21 @@ def _maxpool2(y: Array) -> Array:
         y, init, jax.lax.max, (1, 2, 2, 1), (1, 2, 2, 1), "VALID")
 
 
-class PackedConvBits(struct.PyTreeNode):
-    """Binary hidden conv: packed conv + pad corr (+maxpool on ints) +
-    integer threshold -> packed bits."""
+@pytree_dataclass
+class PackedConvBits:
+    """Binary hidden conv: packed conv + pad corr (+maxpool of s) +
+    integer threshold -> packed bits, one fused kernel call."""
 
     wp: Array                    # (kh*kw*Cw, N) int32
     corr: Array                  # (H, W, N) int32
     sgn: Array                   # (N,) int32
     tau: Array                   # (N,) int32
-    k: int = struct.field(pytree_node=False, default=0)
-    pool: bool = struct.field(pytree_node=False, default=False)
+    k: int = static(0)
+    pool: bool = static(False)
 
     def __call__(self, bits: Array) -> Array:
-        from qnx.kernels.xnor_conv_fused import xnor_conv_fused
-
-        code = xnor_conv_fused(bits, self.wp, self.k, self.corr,
-                               self.sgn, self.tau, pool=self.pool)
+        code = conv_codes(bits, self.wp, self.k, self.corr, self.sgn,
+                          self.tau, pool=self.pool)
         return pack_bits_mxu(code, axis=-1)
 
 
@@ -208,7 +217,8 @@ def _pool_codes(code: Array, sgn: Array) -> Array:
     return jnp.where(flip, -pooled, pooled)
 
 
-class TernaryConvBits(struct.PyTreeNode):
+@pytree_dataclass
+class TernaryConvBits:
     """Ternary hidden conv (two-plane) + threshold -> packed bits."""
 
     mask: Array
@@ -217,18 +227,16 @@ class TernaryConvBits(struct.PyTreeNode):
     corr: Array
     sgn: Array
     tau: Array
-    pool: bool = struct.field(pytree_node=False, default=False)
+    pool: bool = static(False)
 
     def __call__(self, bits: Array) -> Array:
-        from qnx.kernels.xnor_conv_fused import ternary_conv_fused
-
-        code = ternary_conv_fused(bits, self.mask, self.sign, self.nnz,
-                                  self.corr, self.sgn, self.tau,
-                                  pool=self.pool)
+        code = conv_codes(bits, self.mask, self.nnz, self.corr, self.sgn,
+                          self.tau, sign=self.sign, pool=self.pool)
         return pack_bits_mxu(code, axis=-1)
 
 
-class FloatDenseLogitsFromBits(struct.PyTreeNode):
+@pytree_dataclass
+class FloatDenseLogitsFromBits:
     """Float head over binary activations: unpack bits to ±1 then
     f32 GEMM + BN (last_layer_float configs)."""
 
@@ -238,9 +246,9 @@ class FloatDenseLogitsFromBits(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
-    k: int = struct.field(pytree_node=False, default=0)
-    coding: str = struct.field(pytree_node=False, default="pm1")
+    bn_eps: float = static(1e-4)
+    k: int = static(0)
+    coding: str = static("pm1")
 
     def __call__(self, bits: Array) -> Array:
         from qnx.ops.packing import unpack_bits
@@ -283,12 +291,12 @@ def _planes_from_levels(level: Array, nb: int, mode: str = "relu") -> Array:
     """Unsigned level index -> packed {0,1} planes.  quantized_relu levels
     span [0, 2^(nb-1)-1] (nb-1 planes); quantized_tanh UNSIGNED indices
     u = v + (2^(nb-1)-1) span [0, 2^nb - 2] (nb planes)."""
-    from qnx.kernels.plane_gemm import levels_to_planes
+    return jnp.stack([pack_bits((level >> j) & 1, axis=-1)
+                      for j in range(nb - 1 if mode == "relu" else nb)])
 
-    return levels_to_planes(level, nb - 1 if mode == "relu" else nb)
 
-
-class FloatConvPlanes(struct.PyTreeNode):
+@pytree_dataclass
+class FloatConvPlanes:
     """Float first conv -> BN -> n-bit quantized_relu levels -> packed
     {0,1} planes (abits > 1 configs)."""
 
@@ -298,10 +306,10 @@ class FloatConvPlanes(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
-    nb: int = struct.field(pytree_node=False, default=2)
-    pool: bool = struct.field(pytree_node=False, default=False)
-    mode: str = struct.field(pytree_node=False, default="relu")
+    bn_eps: float = static(1e-4)
+    nb: int = static(2)
+    pool: bool = static(False)
+    mode: str = static("relu")
 
     def __call__(self, x: Array) -> Array:
         y = jax.lax.conv_general_dilated(
@@ -331,7 +339,17 @@ def _multi_threshold(s: Array, sgn: Array, tau: Array) -> Array:
     )
 
 
-class PlaneConvTernary(struct.PyTreeNode):
+def _plane_sum(planes: Array, mask: Array, msign: Array) -> Array:
+    """(P, M, Kw) {0,1} planes x weight planes -> s = sum_j 2^j (b_j @ w)."""
+    s = None
+    for j in range(planes.shape[0]):
+        t = R.plane_gemm_ref(planes[j], mask, msign)
+        s = t if s is None else s + (t << j)
+    return s
+
+
+@pytree_dataclass
+class PlaneConvTernary:
     """Ternary-weight conv over activation planes + multi-level integer
     thresholds -> next planes. Binary weights use mask = all-valid.
 
@@ -347,14 +365,16 @@ class PlaneConvTernary(struct.PyTreeNode):
     sgn: Array                   # (N,) int32
     tau: Array                   # (n_thresh, N) int32
     corr: Any = None             # (H, W, N) int32 border corr (tanh mode)
-    nb: int = struct.field(pytree_node=False, default=2)
-    pool: bool = struct.field(pytree_node=False, default=False)
-    mode: str = struct.field(pytree_node=False, default="relu")
+    nb: int = static(2)
+    pool: bool = static(False)
+    mode: str = static("relu")
 
     def __call__(self, planes: Array) -> Array:
-        from qnx.kernels.plane_gemm import plane_conv
-
-        s = plane_conv(planes, self.mask, self.msign)
+        b, h, w, _ = planes.shape[1:]
+        s = _plane_sum(
+            extract_packed_patches(planes.reshape(-1, h, w, planes.shape[-1]),
+                                   3, 3).reshape(planes.shape[0], b * h * w, -1),
+            self.mask, self.msign).reshape(b, h, w, -1)
         if self.corr is not None:
             s = s + self.corr[None]
         lvl = _multi_threshold(s, self.sgn, self.tau)
@@ -365,29 +385,25 @@ class PlaneConvTernary(struct.PyTreeNode):
         return _planes_from_levels(lvl, self.nb, self.mode)
 
 
-class PlaneDenseTernary(struct.PyTreeNode):
+@pytree_dataclass
+class PlaneDenseTernary:
     """Ternary-weight dense over flattened activation planes."""
 
     mask: Array                  # (Kw, N)
     msign: Array
     sgn: Array
     tau: Array
-    nb: int = struct.field(pytree_node=False, default=2)
-    mode: str = struct.field(pytree_node=False, default="relu")
+    nb: int = static(2)
+    mode: str = static("relu")
 
     def __call__(self, planes: Array) -> Array:
-        from qnx.kernels.plane_gemm import plane_gemm
-
-        p = planes.shape[0]
-        s = None
-        for j in range(p):
-            t = plane_gemm(planes[j], self.mask, self.msign)
-            s = t if s is None else s + (t << j)
+        s = _plane_sum(planes, self.mask, self.msign)
         return _planes_from_levels(_multi_threshold(s, self.sgn, self.tau),
                                    self.nb, self.mode)
 
 
-class PlaneDenseLogits(struct.PyTreeNode):
+@pytree_dataclass
+class PlaneDenseLogits:
     """Integer head over planes: s = sum 2^j t_j, logits = a*s + c."""
 
     mask: Array
@@ -396,17 +412,12 @@ class PlaneDenseLogits(struct.PyTreeNode):
     c: Array
 
     def __call__(self, planes: Array) -> Array:
-        from qnx.kernels.plane_gemm import plane_gemm
-
-        p = planes.shape[0]
-        s = None
-        for j in range(p):
-            t = plane_gemm(planes[j], self.mask, self.msign)
-            s = t if s is None else s + (t << j)
+        s = _plane_sum(planes, self.mask, self.msign)
         return self.a[None, :] * s.astype(jnp.float32) + self.c[None, :]
 
 
-class FloatDenseLogitsFromPlanes(struct.PyTreeNode):
+@pytree_dataclass
+class FloatDenseLogitsFromPlanes:
     """Float head over n-bit activations: x = q * sum 2^j b_j -> f32 GEMM
     -> BN (last_layer_float configs)."""
 
@@ -416,10 +427,10 @@ class FloatDenseLogitsFromPlanes(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
-    k: int = struct.field(pytree_node=False, default=0)
-    q: float = struct.field(pytree_node=False, default=0.5)
-    lvl0: int = struct.field(pytree_node=False, default=0)  # L-1 for qtanh
+    bn_eps: float = static(1e-4)
+    k: int = static(0)
+    q: float = static(0.5)
+    lvl0: int = static(0)  # L-1 for qtanh
 
     def __call__(self, planes: Array) -> Array:
         from qnx.ops.packing import unpack_bits
@@ -439,7 +450,8 @@ class FloatDenseLogitsFromPlanes(struct.PyTreeNode):
         return (y - self.bn_mean) * mul + self.bn_bias
 
 
-class PlaneVGG(struct.PyTreeNode):
+@pytree_dataclass
+class PlaneVGG:
     """End-to-end n-bit-activation VGG (the CIFAR-10 TNN config)."""
 
     first: FloatConvPlanes
@@ -448,17 +460,25 @@ class PlaneVGG(struct.PyTreeNode):
     head: Any
 
     def __call__(self, images: Array) -> Array:
-        planes = self.first(images)
+        return self.rest(self.first(images))
+
+    def body(self, planes: Array) -> Array:
+        """First-layer planes -> the head's input planes."""
         for layer in self.convs:
             planes = layer(planes)
         p, b = planes.shape[0], planes.shape[1]
         planes = planes.reshape(p, b, -1)
         for layer in self.denses:
             planes = layer(planes)
-        return self.head(planes)
+        return planes
+
+    def rest(self, planes: Array) -> Array:
+        """Logits from first-layer planes: ``self(x) == rest(first(x))``."""
+        return self.head(self.body(planes))
 
 
-class PackedVGG(struct.PyTreeNode):
+@pytree_dataclass
+class PackedVGG:
     """End-to-end packed VGG: float first conv -> packed conv blocks ->
     flatten (C-word-aligned) -> packed dense -> head."""
 
@@ -468,14 +488,21 @@ class PackedVGG(struct.PyTreeNode):
     head: Any
 
     def __call__(self, images: Array) -> Array:
-        bits = self.first(images)
+        return self.rest(self.first(images))
+
+    def body(self, bits: Array) -> Array:
+        """First-layer bits -> the head's input bits."""
         for layer in self.convs:
             bits = layer(bits)
         b = bits.shape[0]
         bits = bits.reshape(b, -1)  # (H*W*Cw) word-aligned flatten
         for layer in self.denses:
             bits = layer(bits)
-        return self.head(bits)
+        return bits
+
+    def rest(self, bits: Array) -> Array:
+        """Logits from first-layer bits: ``self(x) == rest(first(x))``."""
+        return self.head(self.body(bits))
 
 
 @jax.jit
@@ -483,7 +510,8 @@ def vgg_forward(model: PackedVGG, images: Array) -> Array:
     return model(images)
 
 
-class PackedMLP(struct.PyTreeNode):
+@pytree_dataclass
+class PackedMLP:
     """End-to-end packed MLP: first (float-in) -> hidden bits -> head."""
 
     first: FloatDenseBits
@@ -491,11 +519,17 @@ class PackedMLP(struct.PyTreeNode):
     head: Any                    # *DenseLogits
 
     def __call__(self, images: Array) -> Array:
-        x = images.reshape(images.shape[0], -1)
-        bits = self.first(x)
+        return self.rest(self.first(images.reshape(images.shape[0], -1)))
+
+    def body(self, bits: Array) -> Array:
+        """First-layer bits -> the head's input bits."""
         for layer in self.hidden:
             bits = layer(bits)
-        return self.head(bits)
+        return bits
+
+    def rest(self, bits: Array) -> Array:
+        """Logits from first-layer bits: ``self(x) == rest(first(x))``."""
+        return self.head(self.body(bits))
 
 
 @jax.jit

@@ -1,13 +1,12 @@
-"""INT8-MXU inference engine: ±1 / level-index activations as int8 tensors,
-binary/ternary weights as int8, contractions on the MXU.
+"""INT8 inference engine: ±1 / level-index activations as int8 tensors,
+binary/ternary weights as int8, contractions as int8×int8→int32 products
+that XLA hands to the tensor cores.
 
 Why this exists alongside the packed popcount engine (SURVEY.md §7.4 item 1
-— "build both, let benchmarks decide"): on v5e the MXU does int8×int8→int32
-at ~394 TOPS while the VPU popcount formulation measures ~11-12 TMAC/s
-(~23 TOPS-equivalent), so for compute-bound batches the MXU path wins ~8x
-over the f32 baseline and ~5x over popcount.  The packed engine keeps the
-32x memory density (weights-in-HBM bound regimes, multi-host sharding of
-large layers); this engine is the speed-of-light per-chip path.
+— "build both, let benchmarks decide"): the int8 tensor cores have a far
+higher peak rate than popcount on the CUDA cores, while the packed engine
+keeps 32x denser weights and activations (memory-bound regimes).  Which one
+wins in which cell is a benchmark question (ROADMAP debt C1).
 
 Semantics are EXACTLY the same integer arithmetic as the packed engine:
 s = sum x*w in int32, thresholds from the same bn_fold pass — the two
@@ -36,21 +35,28 @@ from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from qnx.utils.struct import pytree_dataclass, static
 
 from qnx.ops.quant import REFERENCE_PRECISION
 
 Array = jax.Array
 
 
+#: An int8 conv's sums stay exact through its float32 output while every
+#: |s| is below this (checked at conversion, qnx.convert.pack_model).
+EXACT_F32_INT = 2 ** 24
+
+
 def _conv_i8(x: Array, w: Array) -> Array:
-    """NHWC×HWIO int8 conv -> int32 (MXU), 'SAME' stride 1. Zero pads are
-    exact zeros in this encoding."""
+    """NHWC×HWIO int8 conv -> int32, 'SAME' stride 1. Zero pads are exact
+    zeros in this encoding.  cuDNN runs int8 convolutions with an int32
+    accumulator but a float32 (or int8) output — int32 output is no idiom
+    it has — so the conv asks for float32, exact below EXACT_F32_INT."""
     return jax.lax.conv_general_dilated(
         x, w, (1, 1), "SAME",
         dimension_numbers=("NHWC", "HWIO", "NHWC"),
-        preferred_element_type=jnp.int32,
-    )
+        preferred_element_type=jnp.float32,
+    ).astype(jnp.int32)
 
 
 def _dot_i8(x: Array, w: Array) -> Array:
@@ -119,7 +125,8 @@ def _encode_float(act: str, z: Array, nb: int) -> Array:
     return _levels_from_float(z, nb).astype(jnp.int8)
 
 
-class I8FirstConv(struct.PyTreeNode):
+@pytree_dataclass
+class I8FirstConv:
     """Float conv -> BN -> quantized activation -> int8 encoding."""
 
     w: Array                     # (kh,kw,C,N) f32 (already quantized values)
@@ -128,10 +135,10 @@ class I8FirstConv(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
-    act: str = struct.field(pytree_node=False, default="pm1")
-    nb: int = struct.field(pytree_node=False, default=1)
-    pool: bool = struct.field(pytree_node=False, default=False)
+    bn_eps: float = static(1e-4)
+    act: str = static("pm1")
+    nb: int = static(1)
+    pool: bool = static(False)
 
     def __call__(self, x: Array) -> Array:
         y = jax.lax.conv_general_dilated(
@@ -147,7 +154,8 @@ class I8FirstConv(struct.PyTreeNode):
         return _encode_float(self.act, z, self.nb)
 
 
-class I8FirstDense(struct.PyTreeNode):
+@pytree_dataclass
+class I8FirstDense:
     """Float dense -> BN -> quantized activation -> int8 (MLP first layer)."""
 
     w: Array
@@ -156,9 +164,9 @@ class I8FirstDense(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
-    act: str = struct.field(pytree_node=False, default="pm1")
-    nb: int = struct.field(pytree_node=False, default=1)
+    bn_eps: float = static(1e-4)
+    act: str = static("pm1")
+    nb: int = static(1)
 
     def __call__(self, x: Array) -> Array:
         y = jnp.matmul(x, self.w, precision=REFERENCE_PRECISION)
@@ -169,8 +177,9 @@ class I8FirstDense(struct.PyTreeNode):
         return _encode_float(self.act, z, self.nb)
 
 
-class I8Conv(struct.PyTreeNode):
-    """int8 MXU conv + integer threshold epilogue.
+@pytree_dataclass
+class I8Conv:
+    """int8 conv + integer threshold epilogue.
 
     Threshold-before-pool: the BinaryNet ordering is conv -> maxpool -> BN
     -> sign, but the epilogue is monotone in s per channel
@@ -182,22 +191,10 @@ class I8Conv(struct.PyTreeNode):
     w8: Array                    # (kh,kw,C,N) int8 in {-1,0,+1}
     sgn: Array                   # (N,) int32
     tau: Array                   # (N,) or (L-1, N) int32
-    act: str = struct.field(pytree_node=False, default="pm1")
-    pool: bool = struct.field(pytree_node=False, default=False)
-    fused: bool = struct.field(pytree_node=False, default=False)
+    act: str = static("pm1")
+    pool: bool = static(False)
 
     def __call__(self, x8: Array) -> Array:
-        if self.fused and self.act in ("pm1", "levels"):
-            # single Pallas kernel: conv + threshold (+pool) without the
-            # int32 HBM round-trip (see qnx.kernels.i8_conv_fused; bit-
-            # identical, benchmarked per shape — XLA's conv wins on most).
-            # 'zo'/'tanh' epilogues have no fused variant and fall through
-            # to the (XLA-conv) unfused path below.
-            from qnx.kernels.i8_conv_fused import i8_conv_fused
-
-            levels = 1 if self.act == "pm1" else int(self.tau.shape[0])
-            return i8_conv_fused(x8, self.w8, self.sgn, self.tau,
-                                 levels=levels, pool=self.pool)
         s = _conv_i8(x8, self.w8)
         out = _act_epilogue(self.act, s, self.sgn, self.tau)
         if self.pool:
@@ -209,21 +206,23 @@ class I8Conv(struct.PyTreeNode):
         return out
 
 
-class I8Dense(struct.PyTreeNode):
-    """int8 MXU dense + integer threshold epilogue."""
+@pytree_dataclass
+class I8Dense:
+    """int8 dense + integer threshold epilogue."""
 
     w8: Array                    # (K, N) int8
     sgn: Array
     tau: Array
-    act: str = struct.field(pytree_node=False, default="pm1")
+    act: str = static("pm1")
 
     def __call__(self, x8: Array) -> Array:
         s = _dot_i8(x8, self.w8)
         return _act_epilogue(self.act, s, self.sgn, self.tau)
 
 
-class I8DenseLogits(struct.PyTreeNode):
-    """int8 MXU head: logits = a*s + c."""
+@pytree_dataclass
+class I8DenseLogits:
+    """int8 head: logits = a*s + c."""
 
     w8: Array
     a: Array
@@ -234,7 +233,8 @@ class I8DenseLogits(struct.PyTreeNode):
         return self.a[None, :] * s.astype(jnp.float32) + self.c[None, :]
 
 
-class I8FloatHead(struct.PyTreeNode):
+@pytree_dataclass
+class I8FloatHead:
     """Float head: decode int8 activations to real values, f32 GEMM + BN."""
 
     w: Array
@@ -243,8 +243,8 @@ class I8FloatHead(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
-    q: float = struct.field(pytree_node=False, default=1.0)  # level step; 1 for pm1
+    bn_eps: float = static(1e-4)
+    q: float = static(1.0)  # level step; 1 for pm1
 
     def __call__(self, x8: Array) -> Array:
         x = x8.astype(jnp.float32) * self.q
@@ -255,14 +255,15 @@ class I8FloatHead(struct.PyTreeNode):
         return (y - self.bn_mean) * mul + self.bn_bias
 
 
-class I8WDense(struct.PyTreeNode):
+@pytree_dataclass
+class I8WDense:
     """Dense with int8 *weights* and float activations (relu network types:
     ``qnn`` / ``bnn`` / ``tnn`` — reference semantics: quantized weights,
     full-precision relu activations, SURVEY.md §1.2 L4).
 
     The real-bit artifact here is weight storage: pow2-grid weights are
     ``alpha * z`` with ``z`` an integer in [-2^(nb-1), 2^(nb-1)-1] — int8 for
-    nb <= 8 — so the kernel lives in HBM at 4x f32 density and is dequantized
+    nb <= 8 — so the kernel lives in device memory at 4x f32 density and is dequantized
     on the fly (one fused multiply).  ``alpha * z`` reproduces the fake-quant
     weight VALUES bit-for-bit: both are fl(H * z * 2^-(nb-1)) because scaling
     by a power of two is exact in f32.  Logits then agree with the fake-quant
@@ -276,7 +277,7 @@ class I8WDense(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
+    bn_eps: float = static(1e-4)
 
     def __call__(self, x: Array) -> Array:
         w = self.w.astype(jnp.float32) * self.alpha
@@ -288,7 +289,8 @@ class I8WDense(struct.PyTreeNode):
         return jax.nn.relu(z)
 
 
-class I8WConv(struct.PyTreeNode):
+@pytree_dataclass
+class I8WConv:
     """Conv with int8 weights and float activations (relu network types).
     Order matches the training graph: conv -> [maxpool] -> BN -> relu."""
 
@@ -299,8 +301,8 @@ class I8WConv(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
-    pool: bool = struct.field(pytree_node=False, default=False)
+    bn_eps: float = static(1e-4)
+    pool: bool = static(False)
 
     def __call__(self, x: Array) -> Array:
         w = self.w.astype(jnp.float32) * self.alpha
@@ -317,7 +319,8 @@ class I8WConv(struct.PyTreeNode):
         return jax.nn.relu(z)
 
 
-class I8WHead(struct.PyTreeNode):
+@pytree_dataclass
+class I8WHead:
     """Head for relu network types: logits = BN(x @ (alpha*w) + bias)."""
 
     w: Array
@@ -327,7 +330,7 @@ class I8WHead(struct.PyTreeNode):
     bn_bias: Array
     bn_mean: Array
     bn_var: Array
-    bn_eps: float = struct.field(pytree_node=False, default=1e-4)
+    bn_eps: float = static(1e-4)
 
     def __call__(self, x: Array) -> Array:
         w = self.w.astype(jnp.float32) * self.alpha
@@ -338,33 +341,48 @@ class I8WHead(struct.PyTreeNode):
         return (y - self.bn_mean) * mul + self.bn_bias
 
 
-class I8MLP(struct.PyTreeNode):
+@pytree_dataclass
+class I8MLP:
     first: I8FirstDense
     hidden: Tuple[Any, ...]
     head: Any
 
     def __call__(self, images: Array) -> Array:
-        x = images.reshape(images.shape[0], -1)
-        x8 = self.first(x)
+        return self.rest(self.first(images.reshape(images.shape[0], -1)))
+
+    def body(self, x8: Array) -> Array:
+        """First-layer codes -> the head's input codes."""
         for layer in self.hidden:
             x8 = layer(x8)
-        return self.head(x8)
+        return x8
+
+    def rest(self, x8: Array) -> Array:
+        """Logits from first-layer codes: ``self(x) == rest(first(x))``."""
+        return self.head(self.body(x8))
 
 
-class I8VGG(struct.PyTreeNode):
+@pytree_dataclass
+class I8VGG:
     first: I8FirstConv
     convs: Tuple[Any, ...]
     denses: Tuple[Any, ...]
     head: Any
 
     def __call__(self, images: Array) -> Array:
-        x8 = self.first(images)
+        return self.rest(self.first(images))
+
+    def body(self, x8: Array) -> Array:
+        """First-layer codes -> the head's input codes."""
         for layer in self.convs:
             x8 = layer(x8)
         x8 = x8.reshape(x8.shape[0], -1)
         for layer in self.denses:
             x8 = layer(x8)
-        return self.head(x8)
+        return x8
+
+    def rest(self, x8: Array) -> Array:
+        """Logits from first-layer codes: ``self(x) == rest(first(x))``."""
+        return self.head(self.body(x8))
 
 
 @jax.jit

@@ -13,8 +13,8 @@ Layout contract (shared by the converter, the jnp golden reference in
   both operands**, so padding bits XOR to 0 (a "match") and the true dot
   product is recovered as ``dot = K - 2*popcount(x ^ w)`` with the *unpadded*
   K — no correction term needed;
-* packed words are stored as int32 (TPU-native 32-bit lanes); helpers bitcast
-  through uint32 for shifts.
+* packed words are stored as int32; helpers bitcast through uint32 for
+  shifts.
 
 The reference framework (SURVEY.md §1.1) has no packed format at all — it
 fake-quantizes in float32 — so this module implements the north-star
@@ -65,7 +65,7 @@ def _pack_planes(n: int):
 
     Column g*nw + j accumulates bits 32j+s_g .. 32j+s_g+w_g-1 of word j with
     weights 2^0..2^(w_g-1); groups of width <= 7 keep every entry <= 64 so
-    the matrix is int8 (MXU-native).  The final word is assembled by
+    the matrix is int8.  The final word is assembled by
     shifting group g left by s_g and summing — exact as a 32-bit pattern
     under int32 modular arithmetic."""
     import numpy as np
@@ -81,16 +81,14 @@ def _pack_planes(n: int):
 
 
 def pack_bits_mxu(x: Array, axis: int = -1) -> Array:
-    """MXU formulation of :func:`pack_bits` for int8/bool codes.
+    """Matmul formulation of :func:`pack_bits` for int8/bool codes.
 
-    The shift-sum pack materializes a 32x-wider uint32 intermediate and was
-    measured at ~10 ms on a (1M, 256) int8 code tensor on v5e — dominating
-    the fused packed conv layers.  This version computes the same words as
-    one int8 matmul against a constant block-diagonal pow2 matrix
-    (~2.7 GMAC for that tensor, <0.5 ms on the MXU) plus a cheap shift-sum
-    over 5 group columns.  Bit-identical to ``pack_bits`` (same strict-sign
-    convention: bit 1 iff x > 0); falls back to it when the packed axis is
-    not word-aligned."""
+    The shift-sum pack materializes a 32x-wider uint32 intermediate; this
+    version computes the same words as one int8 matmul against a constant
+    block-diagonal pow2 matrix plus a cheap shift-sum over 5 group columns
+    (whether that pays on the H100 is ROADMAP queue 1 item 4).
+    Bit-identical to ``pack_bits`` (same strict-sign convention: bit 1 iff
+    x > 0); falls back to it when the packed axis is not word-aligned."""
     x = jnp.moveaxis(x, axis, -1)
     n = x.shape[-1]
     if n % WORD:

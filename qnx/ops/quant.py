@@ -43,15 +43,13 @@ Array = jax.Array
 
 #: Matmul/conv precision for every float computation that bit-parity is
 #: defined against.  The reference computes in true float32 (TF1-era CPU/GPU
-#: kernels); on TPU, XLA's DEFAULT precision executes nominal-f32 matmuls
-#: and convs with bfloat16 multiplies, which silently changes the effective
-#: weight scale to bf16(H).  sign() activations are scale-invariant so
-#: binary nets still match, but multi-level (abits > 1) integer thresholds
-#: are not: the round-3 full-width TNN parity artifact measured only 63%
-#: argmax agreement between the DEFAULT-precision fake-quant model and the
-#: (exact-integer) engines, while CPU runs matched bit-for-bit.  HIGHEST
-#: (6-pass bf16 = f32-faithful on v5e) restores reference semantics; the
-#: fake-quant layers and the engines' float boundary layers all pin it.
+#: kernels); XLA's DEFAULT precision may execute nominal-f32 matmuls and
+#: convs with reduced-precision multiplies (TF32 on the H100), which
+#: silently changes the effective weight scale.  sign() activations are
+#: scale-invariant so binary nets still match, but multi-level (abits > 1)
+#: integer thresholds are not.  HIGHEST (true float32, no TF32) restores
+#: reference semantics; the fake-quant layers and the engines' float
+#: boundary layers all pin it.
 REFERENCE_PRECISION = lax.Precision.HIGHEST
 
 
@@ -126,10 +124,14 @@ def ternarize(w: Array, H: float = 1.0) -> Array:
 
     Forward: +H where w/H > 0.5, -H where w/H <= -0.5, else 0.
     Backward: identity on [-H, H] (latent w is clipped before thresholding).
+
+    The test is w against H/2, exact in any precision: XLA may compile a
+    division by a constant as a product with its rounded reciprocal, which
+    moves w = -H/2 (a value uniform initialisation does draw) to 0.
     """
     wc = clip_through(w, -H, H)
-    r = wc / H
-    tern = jnp.where(r > 0.5, H, jnp.where(r <= -0.5, -H, 0.0))
+    half = 0.5 * H
+    tern = jnp.where(wc > half, H, jnp.where(wc <= -half, -H, 0.0))
     return wc + _sg(tern - wc)
 
 

@@ -14,8 +14,8 @@ devices via ``initialize_distributed``) and ``tests/test_multiprocess.py``
 (spawns 2 workers, compares their scalars to the in-process 8-device run).
 
 Reference counterpart: none — the reference is single-device Keras
-(SURVEY.md §2.2); BASELINE.json's "multi-host TPU pod slice" target makes
-the process-id/coordinator path part of qnx's owed surface.
+(SURVEY.md §2.2); BASELINE.json's multi-device target makes the
+process-id/coordinator path part of qnx's owed surface.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Device mesh construction: one Mesh('data', 'model') drives everything.
 
 The reference is single-device (SURVEY.md §2.2 — no DP/TP/PP anywhere); the
-north star requires DP over image streams + TP over packed output channels,
-riding ICI.  All distribution in qnx goes through the mesh built here plus
+north star requires DP over image streams + TP over packed output channels.
+All distribution in qnx goes through the mesh built here plus
 NamedSharding rules (:mod:`qnx.parallel.sharding`) — no hand-rolled
 communication (SURVEY.md §7.5).
 """
@@ -26,11 +26,9 @@ def initialize_distributed(coordinator_address: str | None = None,
     the same mesh/sharding/serving code runs unchanged on a pod slice
     (host-count is pure config, SURVEY.md §7.4 item 5).
 
-    On GCE/GKE TPU pods all three arguments auto-detect (pass nothing);
-    elsewhere pass coordinator 'host0:port', world size, and this host's
-    rank. Returns the process index. Safe to call on a single host with no
-    arguments only when a cluster env is present; single-process runs should
-    simply not call it.
+    Pass the coordinator 'host0:port', the world size and this host's rank;
+    nothing auto-detects them on a plain GPU host.  Returns the process
+    index.  Single-process runs should simply not call it.
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

@@ -30,11 +30,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from .mesh import MODEL_AXIS
 
-try:  # jax >= 0.7 exposes shard_map at the top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
 
 def _default_gemm(a: jax.Array, b: jax.Array) -> jax.Array:
     return jax.lax.dot_general(
@@ -61,19 +56,15 @@ def allgather_gemm_overlapped(x: jax.Array, w: jax.Array, mesh: Mesh,
     activation chunk to the next ring neighbour, then multiplies that chunk
     against the matching K-rows of its resident weight shard; after m steps
     every chunk has visited every device.  ppermute is an async collective,
-    so the transfer of chunk i+1 rides the ICI while chunk i is on the MXU.
+    so the transfer of chunk i+1 overlaps the GEMM of chunk i.
     """
     m = mesh.shape[MODEL_AXIS]
     gemm = gemm or _default_gemm
 
     @functools.partial(
-        shard_map, mesh=mesh,
+        jax.shard_map, mesh=mesh,
         in_specs=(P(batch_axis, MODEL_AXIS), P(None, MODEL_AXIS)),
         out_specs=P(batch_axis, MODEL_AXIS),
-        # the per-chunk gemm may be a pallas_call (ring popcount path),
-        # whose ShapeDtypeStruct carries no varying-manual-axes annotation;
-        # the kernel is purely local so vma checking adds nothing here
-        check_vma=False,
     )
     def run(xs, ws):
         # xs: (M, K/m) local activation chunk; ws: (K, N/m) resident shard

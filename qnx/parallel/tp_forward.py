@@ -2,16 +2,15 @@
 the serving-path consumer of :mod:`qnx.parallel.overlap` (VERDICT r4
 Missing #3: the ring existed but nothing in the serving engine used it).
 
-Why the ring (and not plain GSPMD) for the packed engine: the popcount
-GEMMs are Pallas kernels, which lower to custom calls GSPMD cannot
-partition — under a TP-sharded pytree XLA must all-gather their operands
-and replicate the whole kernel on every device, so the "auto-collectives"
-path does not actually split popcount compute at all.  The shard_map ring
-below is therefore not merely an overlap optimization but the only
-execution path that runs each device's popcount on its own weight shard,
-with each hop's ppermute transfer hidden behind the Pallas GEMM on the
-chunk already resident (BASELINE.json north star: "all-gather/
-reduce-scatter collectives overlapped with popcount-GEMM compute").
+Why the ring (and not plain GSPMD) for the packed engine: the fused
+popcount layers are Pallas kernels, which lower to custom calls GSPMD
+cannot partition — under a TP-sharded pytree XLA must all-gather their
+operands and replicate the whole kernel on every device.  The shard_map
+ring below runs each device's popcount GEMM on its own weight shard, with
+each hop's ppermute transfer hidden behind the GEMM on the chunk already
+resident.  Per chunk it uses the plain popcount formulation
+(:func:`qnx.ops.reference.xnor_gemm_ref`) and applies the threshold after
+the ring (ROADMAP debt C3 asks whether plain sharding can replace it).
 
 Layout contract (SURVEY.md §7.2 Phase E): packed weight planes (Kw, N) are
 output-channel (N) sharded; the layer's output bits are packed along N, so
@@ -48,7 +47,7 @@ def _batch_axis(mesh: Mesh, batch: int):
 def ring_xnor_gemm(xp: jax.Array, wp: jax.Array, k: int, mesh: Mesh) -> jax.Array:
     """TP packed binary GEMM: the activation all-gather decomposed into a
     ppermute ring, each chunk multiplied by the resident weight rows with
-    the production Pallas popcount kernel (qnx.kernels.xnor_gemm).
+    the plain popcount formulation.
 
     xp: (M, Kw) packed ±1 activations, Kw-sharded over MODEL_AXIS;
     wp: (Kw, N) packed weights, N-sharded.  Returns (M, N) int32 exact ±1
@@ -58,10 +57,10 @@ def ring_xnor_gemm(xp: jax.Array, wp: jax.Array, k: int, mesh: Mesh) -> jax.Arra
     chunks gives 32*Kw - 2*mismatch, so the true dot over k real bits is
     recovered with the constant k - 32*Kw (pad bits are 0 in both operands,
     hence never mismatch)."""
-    from qnx.kernels.xnor_gemm import xnor_gemm_popcount
+    from qnx.ops.reference import xnor_gemm_ref
 
     def chunk_gemm(a, b):
-        return xnor_gemm_popcount(a, b, a.shape[1] * WORD)
+        return xnor_gemm_ref(a, b, a.shape[1] * WORD)
 
     s = allgather_gemm_overlapped(xp, wp, mesh, gemm=chunk_gemm,
                                   batch_axis=_batch_axis(mesh, xp.shape[0]))
@@ -70,7 +69,7 @@ def ring_xnor_gemm(xp: jax.Array, wp: jax.Array, k: int, mesh: Mesh) -> jax.Arra
 
 def _code_bits(s, sgn, tau):
     """Integer threshold epilogue + repack, bit-identical to the fused
-    kernel's (qnx.kernels.xnor_conv_fused): bit = (sgn*s >= tau)."""
+    kernel's (qnx.kernels.popcount): bit = (sgn*s >= tau)."""
     from qnx.ops.packing import pack_bits_mxu
 
     code = jnp.where(sgn[None, :] * s >= tau[None, :],
@@ -104,43 +103,39 @@ def tp_supported(model, mesh: Mesh) -> bool:
         for l in denses)
 
 
+def ring_dense_stack(layers, bits: jax.Array, mesh: Mesh) -> jax.Array:
+    """Hidden PackedDenseBits layers via :func:`ring_xnor_gemm`: (B, Kw)
+    packed bits in, the last layer's packed bits out, gathered for a
+    replicated consumer.  Weights stay resident; activations ride the ring.
+    Bit-identical to applying the layers on one device."""
+    ba = _batch_axis(mesh, bits.shape[0])
+    for layer in layers:
+        bits = _shard(mesh, bits, P(ba, MODEL_AXIS))
+        s = ring_xnor_gemm(bits, layer.wp, layer.k, mesh)
+        bits = _code_bits(s, layer.sgn, layer.tau)
+    return _shard(mesh, bits, P(ba))
+
+
 def tp_mlp_forward(model, x: jax.Array, mesh: Mesh) -> jax.Array:
     """PackedMLP forward with ring-overlapped TP hidden layers.
 
     first (float GEMM, N-sharded kernel) -> hidden PackedDenseBits via
-    :func:`ring_xnor_gemm` (weights resident, activations ride the ring) ->
-    head replicated (10 classes don't divide; its (Kw, 10) plane is <0.1%
-    of model bytes).  Bit-identical to the single-device
-    :func:`qnx.nn.inference.mlp_forward`."""
-    x = x.reshape(x.shape[0], -1)
-    ba = _batch_axis(mesh, x.shape[0])
-    bits = model.first(x)  # GSPMD: kernel N-sharded -> bits N-word-sharded
-    bits = _shard(mesh, bits, P(ba, MODEL_AXIS))
-    for layer in model.hidden:
-        s = ring_xnor_gemm(bits, layer.wp, layer.k, mesh)
-        bits = _shard(mesh, _code_bits(s, layer.sgn, layer.tau),
-                      P(ba, MODEL_AXIS))
-    bits = _shard(mesh, bits, P(ba))  # gather words for the replicated head
-    return model.head(bits)
+    :func:`ring_dense_stack` -> head replicated (10 classes don't divide;
+    its (Kw, 10) plane is <0.1% of model bytes)."""
+    bits = model.first(x.reshape(x.shape[0], -1))
+    return model.head(ring_dense_stack(model.hidden, bits, mesh))
 
 
 def tp_vgg_forward(model, x: jax.Array, mesh: Mesh) -> jax.Array:
-    """PackedVGG forward: conv stage replicated (Pallas conv kernels are
+    """PackedVGG forward: conv stage replicated (the fused conv kernels are
     unpartitionable custom calls; conv planes are the small minority of
     VGG bytes), dense tail — where the weight mass lives — via the
-    overlapped ring.  Bit-identical to ``vgg_forward``."""
+    overlapped ring."""
     bits = model.first(x)
     for layer in model.convs:
         bits = layer(bits)
-    b = bits.shape[0]
-    bits = bits.reshape(b, -1)
-    ba = _batch_axis(mesh, b)
-    for layer in model.denses:
-        bits = _shard(mesh, bits, P(ba, MODEL_AXIS))
-        s = ring_xnor_gemm(bits, layer.wp, layer.k, mesh)
-        bits = _code_bits(s, layer.sgn, layer.tau)
-    bits = _shard(mesh, bits, P(ba))
-    return model.head(bits)
+    bits = bits.reshape(bits.shape[0], -1)
+    return model.head(ring_dense_stack(model.denses, bits, mesh))
 
 
 def make_tp_forward(model, mesh: Mesh):

@@ -93,6 +93,10 @@ class ServeEngine:
         self.batch_size = batch_size
         self.max_wait_ms = max_wait_ms
         self.mesh = mesh
+        # which forward serves the batches: "tp-ring" (ring-overlapped TP
+        # packed forward), "replicated" (single device, or a mesh whose
+        # model the ring does not support), or "custom" (``forward`` given)
+        self.forward_kind = "replicated" if forward is None else "custom"
         # uint8 batches ship to the device RAW (4x fewer host->device bytes
         # than f32 — the serving bottleneck on thin transports) and are
         # normalized in-jit with the exact same IEEE ops as the native host
@@ -112,8 +116,10 @@ class ServeEngine:
                 # so the ring is the path that actually splits popcount
                 # compute across the model shards (VERDICT r4 Missing #3);
                 # None (unsupported model/mesh) falls back to the GSPMD/
-                # replicated default below.
+                # replicated default below, and stats() says which ran.
                 forward = make_tp_forward(model, mesh)
+                if forward is not None:
+                    self.forward_kind = "tp-ring"
         else:
             self.model = jax.device_put(model)
             self._data_sharding = None
@@ -199,7 +205,7 @@ class ServeEngine:
         return np.stack([f.result(timeout=300) for f in futs])
 
     def stats(self) -> dict:
-        return self._stats.summary()
+        return {**self._stats.summary(), "forward": self.forward_kind}
 
     def __enter__(self):
         return self.start()

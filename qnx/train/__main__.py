@@ -23,7 +23,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(prog="qnx.train", description=__doc__)
     p.add_argument("--config", choices=sorted(CONFIGS), default=None,
-                   help="preset config (BASELINE.json entries)")
+                   help="preset config (qnx.utils.config.CONFIGS)")
     defaults = Config()
     p.add_argument("--dataset", default=None)
     p.add_argument("--architecture", choices=["mlp", "vgg"], default=None)
@@ -82,7 +82,10 @@ def main(argv=None):
 
     from qnx.data.datasets import load_dataset
     from qnx.train.loop import fit
+    from qnx.utils.compile_cache import setup_compile_cache
     from qnx.utils.metrics import MetricsLogger
+
+    setup_compile_cache()
 
     os.makedirs(args.out, exist_ok=True)
     logger = MetricsLogger(os.path.join(args.out, "metrics.jsonl"))

@@ -1,33 +1,90 @@
-"""Flax modules for fake-quant (STE) training — the layer zoo of the
-reference framework, rebuilt functionally.
+"""Fake-quant (STE) layers for training — the layer zoo of the reference
+framework, written as plain JAX functions over a variable tree.
 
 Reference counterparts (SURVEY.md §2.1, ``layers/quantized_layers.py`` /
 ``layers/binary_layers.py`` in the Keras lineage): ``QuantizedDense``,
 ``QuantizedConv2D``, ``BinaryDense``, ``BinaryConv2D``, ``TernaryDense``,
 ``TernaryConv2D``, plus the ``Clip`` weight constraint and the
-``H='Glorot'`` weight-scale logic.  Unlike the Keras class hierarchy these
-are thin flax modules around the pure STE ops in :mod:`qnx.ops.quant`; the
-latent float kernel is the trainable param, quantization happens in ``call``
-every forward (training only — inference uses the packed integer engine).
+``H='Glorot'`` weight-scale logic.  The latent float kernel is the
+trainable param; quantization happens in every forward (training only —
+inference uses the packed integer engines).
 
-Each quantized layer records its resolved weight scale H in the ``quant``
-variable collection so that (a) the post-update Clip constraint and the
-per-kernel ``kernel_lr_multiplier`` (= 1/H for Glorot scaling,
-arXiv:1511.00363) can be applied by the train loop, and (b) the converter
-can re-quantize latent checkpoints with the exact same H.
+Variables live in three collections, keyed by layer name:
+
+* ``params``      — ``kernel`` (and ``bias``) per layer, ``scale``/``bias``
+  per BatchNorm;
+* ``batch_stats`` — BatchNorm running ``mean``/``var``;
+* ``quant``       — the resolved weight scale ``H`` and the per-kernel
+  ``lr_mult`` (= 1/H for Glorot scaling, arXiv:1511.00363) of every
+  quantized layer, consumed by the train loop's Clip constraint and LR
+  multiplier and by the converter, which re-quantizes latent checkpoints
+  with the exact same H.
+
+A :class:`Scope` carries one forward's variables: while initialising it
+creates each variable on first use, otherwise it reads them, and in
+training mode it collects the BatchNorm statistics updates.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence
+import math
+from typing import Any, Callable
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from qnx.ops import quant as Q
 
 Array = jax.Array
-Dtype = Any
+
+
+class Scope:
+    """Variables of one ``init`` or ``apply`` call.
+
+    ``variables=None`` initialises: every variable is created from ``rng``
+    (one fold per variable, in creation order).  ``rngs`` maps a stream name
+    (``dropout``, ``quant``) to a key; each draw folds in a counter."""
+
+    def __init__(self, variables: dict | None = None, *, rng=None,
+                 train: bool = False, rngs: dict | None = None):
+        self.initializing = variables is None
+        self.variables = {} if variables is None else variables
+        self.train = train
+        self.rngs = dict(rngs or {})
+        self.updates: dict = {}
+        self._rng = rng
+        self._n_init = 0
+        self._n_draw = 0
+
+    def get(self, collection: str, layer: str, name: str,
+            init: Callable[[Array], Array]) -> Array:
+        if self.initializing:
+            key = jax.random.fold_in(self._rng, self._n_init)
+            self._n_init += 1
+            (self.variables.setdefault(collection, {})
+             .setdefault(layer, {})[name]) = init(key)
+        return self.variables[collection][layer][name]
+
+    def param(self, layer: str, name: str, init) -> Array:
+        return self.get("params", layer, name, init)
+
+    def update(self, collection: str, layer: str, name: str, value) -> None:
+        self.updates.setdefault(collection, {}).setdefault(layer, {})[
+            name] = value
+
+    def has_rng(self, stream: str) -> bool:
+        return stream in self.rngs
+
+    def make_rng(self, stream: str) -> Array:
+        self._n_draw += 1
+        return jax.random.fold_in(self.rngs[stream], self._n_draw)
+
+    def collection(self, name: str) -> dict:
+        """``name`` with this call's updates merged in."""
+        out = {k: dict(v) for k, v in self.variables.get(name, {}).items()}
+        for layer, vals in self.updates.get(name, {}).items():
+            out.setdefault(layer, {}).update(vals)
+        return out
 
 
 def _resolve_h(H, fan_in: int, fan_out: int) -> float:
@@ -38,209 +95,137 @@ def _resolve_h(H, fan_in: int, fan_out: int) -> float:
     return float(H)
 
 
-def _uniform_init(h: float):
-    def init(key, shape, dtype=jnp.float32):
-        return jax.random.uniform(key, shape, dtype, minval=-h, maxval=h)
-
-    return init
+def _glorot_uniform(shape, fan_in: int, fan_out: int):
+    lim = math.sqrt(6.0 / (fan_in + fan_out))
+    return lambda key: jax.random.uniform(key, shape, jnp.float32, -lim, lim)
 
 
-class _QuantKernelMixin:
-    """Shared latent-kernel creation + H bookkeeping."""
-
-    def _latent_kernel(self, shape: Sequence[int], fan_in: int, fan_out: int):
-        h = _resolve_h(self.H, fan_in, fan_out)
-        kernel = self.param("kernel", _uniform_init(h), tuple(shape))
-        # non-trainable metadata: resolved H and lr multiplier (1/H unless
-        # overridden), consumed by qnx.train.loop and qnx.convert
-        self.variable("quant", "H", lambda: jnp.float32(h))
-        lr_mult = (1.0 / h) if self.kernel_lr_multiplier is None else float(
-            self.kernel_lr_multiplier
-        )
-        self.variable("quant", "lr_mult", lambda: jnp.float32(lr_mult))
-        return kernel, h
-
-
-class BinaryDense(nn.Module, _QuantKernelMixin):
-    """Dense layer with binarized {-H,+H} weights (BinaryConnect).
-
-    Reference: ``BinaryDense`` in layers/binary_layers.py (reconstructed,
-    SURVEY.md §2.1).  With ``stochastic=True`` the kernel is sampled
-    Wb = +H w.p. hard_sigmoid(w/H) whenever a 'quant' rng is provided
-    (training); without the rng it falls back to deterministic sign —
-    which is exactly BinaryConnect's test-time rule."""
-
-    features: int
-    H: Any = "Glorot"
-    use_bias: bool = False
-    stochastic: bool = False
-    kernel_lr_multiplier: float | None = None
-
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        fan_in = x.shape[-1]
-        kernel, h = self._latent_kernel((fan_in, self.features), fan_in, self.features)
-        if self.stochastic and self.has_rng("quant"):
-            wb = Q.binarize_stochastic(kernel, self.make_rng("quant"), h)
-        else:
-            wb = Q.binarize(kernel, h)
-        y = jnp.matmul(x, wb, precision=Q.REFERENCE_PRECISION)
-        if self.use_bias:
-            y = y + self.param("bias", nn.initializers.zeros, (self.features,))
-        return y
+def _latent_kernel(s: Scope, name: str, shape, fan_in: int, fan_out: int,
+                   H, kernel_lr_multiplier):
+    """Latent kernel ~ U(-H, H) plus its ``quant`` metadata (H, lr_mult)."""
+    h = _resolve_h(H, fan_in, fan_out)
+    kernel = s.param(name, "kernel", lambda key: jax.random.uniform(
+        key, tuple(shape), jnp.float32, -h, h))
+    lr_mult = (1.0 / h) if kernel_lr_multiplier is None else float(
+        kernel_lr_multiplier)
+    s.get("quant", name, "H", lambda _: jnp.float32(h))
+    s.get("quant", name, "lr_mult", lambda _: jnp.float32(lr_mult))
+    # the stored float32 H, so that the model quantizes with the same H in
+    # float64 as in float32 and as the converters
+    return kernel, float(np.float32(h))
 
 
-class TernaryDense(nn.Module, _QuantKernelMixin):
-    """Dense layer with ternarized {-H,0,+H} weights.
+def quantize_kernel(s: Scope, kind: str, kernel: Array, h: float, *,
+                    nb: int = 1, style: str = "dingke",
+                    stochastic: bool = False) -> Array:
+    """Forward weight values of one quantized layer.
 
-    ``style='dingke'`` thresholds at ±0.5*H; ``style='twn'`` uses
-    delta = 0.7*E|W| with learned-free scale alpha (arXiv:1605.04711)."""
-
-    features: int
-    H: Any = "Glorot"
-    use_bias: bool = False
-    style: str = "dingke"
-    kernel_lr_multiplier: float | None = None
-
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        fan_in = x.shape[-1]
-        kernel, h = self._latent_kernel((fan_in, self.features), fan_in, self.features)
-        wt = Q.ternarize(kernel, h) if self.style == "dingke" else Q.ternarize_twn(kernel)
-        y = jnp.matmul(x, wt, precision=Q.REFERENCE_PRECISION)
-        if self.use_bias:
-            y = y + self.param("bias", nn.initializers.zeros, (self.features,))
-        return y
-
-
-class QuantizedDense(nn.Module, _QuantKernelMixin):
-    """Dense layer with nb-bit pow2-grid quantized weights."""
-
-    features: int
-    nb: int = 4
-    H: Any = "Glorot"
-    use_bias: bool = False
-    kernel_lr_multiplier: float | None = None
-
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        fan_in = x.shape[-1]
-        kernel, h = self._latent_kernel((fan_in, self.features), fan_in, self.features)
-        wq = Q.quantize(kernel, self.nb, h)
-        y = jnp.matmul(x, wq, precision=Q.REFERENCE_PRECISION)
-        if self.use_bias:
-            y = y + self.param("bias", nn.initializers.zeros, (self.features,))
-        return y
-
-
-def _conv(x: Array, kernel: Array, strides, padding) -> Array:
-    """NHWC x HWIO conv (same conv the packed engine reproduces)."""
-    return jax.lax.conv_general_dilated(
-        x,
-        kernel,
-        window_strides=strides,
-        padding=padding,
-        dimension_numbers=("NHWC", "HWIO", "NHWC"),
-        precision=Q.REFERENCE_PRECISION,
-    )
-
-
-class _QuantConvBase(nn.Module, _QuantKernelMixin):
-    features: int = 0
-    kernel_size: Sequence[int] = (3, 3)
-    strides: Sequence[int] = (1, 1)
-    padding: str = "SAME"
-    H: Any = "Glorot"
-    use_bias: bool = False
-    kernel_lr_multiplier: float | None = None
-
-    def _quantize_kernel(self, kernel: Array, h: float) -> Array:
-        raise NotImplementedError
-
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        kh, kw = self.kernel_size
-        cin = x.shape[-1]
-        fan_in = kh * kw * cin
-        fan_out = kh * kw * self.features
-        kernel, h = self._latent_kernel(
-            (kh, kw, cin, self.features), fan_in, fan_out
-        )
-        wq = self._quantize_kernel(kernel, h)
-        y = _conv(x, wq, tuple(self.strides), self.padding)
-        if self.use_bias:
-            y = y + self.param("bias", nn.initializers.zeros, (self.features,))
-        return y
-
-
-class BinaryConv2D(_QuantConvBase):
-    """Conv2D with binarized weights (reference BinaryConv2D); supports
-    stochastic binarization like BinaryDense."""
-
-    stochastic: bool = False
-
-    def _quantize_kernel(self, kernel, h):
-        if self.stochastic and self.has_rng("quant"):
-            return Q.binarize_stochastic(kernel, self.make_rng("quant"), h)
+    ``binary`` (BinaryConnect): ``stochastic`` samples Wb = +H w.p.
+    hard_sigmoid(w/H) whenever a ``quant`` rng is given (training); without
+    it the deterministic sign is used — BinaryConnect's test-time rule.
+    ``ternary``: ``style='dingke'`` thresholds at ±0.5*H, ``'twn'`` uses
+    delta = 0.7*E|W| (arXiv:1605.04711).  ``quant``: nb-bit pow2 grid."""
+    if kind == "binary":
+        if stochastic and s.has_rng("quant"):
+            return Q.binarize_stochastic(kernel, s.make_rng("quant"), h)
         return Q.binarize(kernel, h)
+    if kind == "ternary":
+        return Q.ternarize(kernel, h) if style == "dingke" else Q.ternarize_twn(kernel)
+    return Q.quantize(kernel, nb, h)
 
 
-class TernaryConv2D(_QuantConvBase):
-    """Conv2D with ternarized weights (fork addition, SURVEY.md §2.1)."""
-
-    style: str = "dingke"
-
-    def _quantize_kernel(self, kernel, h):
-        return Q.ternarize(kernel, h) if self.style == "dingke" else Q.ternarize_twn(kernel)
+def _bias(s: Scope, name: str, y: Array, features: int) -> Array:
+    return y + s.param(name, "bias", lambda _: jnp.zeros((features,),
+                                                         jnp.float32))
 
 
-class QuantizedConv2D(_QuantConvBase):
-    """Conv2D with nb-bit quantized weights (reference QuantizedConv2D)."""
-
-    nb: int = 4
-
-    def _quantize_kernel(self, kernel, h):
-        return Q.quantize(kernel, self.nb, h)
-
-
-class FloatDense(nn.Module):
-    """Plain float dense (network_type='float' and first/last layers)."""
-
-    features: int
-    use_bias: bool = True
-
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        kernel = self.param(
-            "kernel", nn.initializers.glorot_uniform(), (x.shape[-1], self.features)
-        )
-        y = jnp.matmul(x, kernel, precision=Q.REFERENCE_PRECISION)
-        if self.use_bias:
-            y = y + self.param("bias", nn.initializers.zeros, (self.features,))
-        return y
+def conv(x: Array, kernel: Array) -> Array:
+    """NHWC x HWIO 'SAME' stride-1 conv (the conv the engines reproduce)."""
+    return jax.lax.conv_general_dilated(
+        x, kernel, (1, 1), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=Q.REFERENCE_PRECISION)
 
 
-class FloatConv2D(nn.Module):
-    """Plain float conv (float first layer of the CIFAR models)."""
+def dense(s: Scope, name: str, x: Array, features: int, *, kind: str,
+          use_bias: bool, H: Any = "Glorot", kernel_lr_multiplier=None,
+          **qkw) -> Array:
+    """Dense layer; ``kind`` is ``float`` (Glorot-uniform kernel, always
+    biased) or a weight quantizer name for :func:`quantize_kernel`."""
+    fan_in = x.shape[-1]
+    shape = (fan_in, features)
+    if kind == "float":
+        w = s.param(name, "kernel", _glorot_uniform(shape, fan_in, features))
+    else:
+        kernel, h = _latent_kernel(s, name, shape, fan_in, features, H,
+                                   kernel_lr_multiplier)
+        w = quantize_kernel(s, kind, kernel, h, **qkw)
+    y = jnp.matmul(x, w, precision=Q.REFERENCE_PRECISION)
+    return _bias(s, name, y, features) if use_bias else y
 
-    features: int
-    kernel_size: Sequence[int] = (3, 3)
-    strides: Sequence[int] = (1, 1)
-    padding: str = "SAME"
-    use_bias: bool = True
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        kh, kw = self.kernel_size
-        kernel = self.param(
-            "kernel",
-            nn.initializers.glorot_uniform(),
-            (kh, kw, x.shape[-1], self.features),
-        )
-        y = _conv(x, kernel, tuple(self.strides), self.padding)
-        if self.use_bias:
-            y = y + self.param("bias", nn.initializers.zeros, (self.features,))
-        return y
+def conv2d(s: Scope, name: str, x: Array, features: int, *, kind: str,
+           use_bias: bool, H: Any = "Glorot", kernel_lr_multiplier=None,
+           **qkw) -> Array:
+    """3x3 'SAME' conv layer; ``kind`` as in :func:`dense`."""
+    cin = x.shape[-1]
+    shape = (3, 3, cin, features)
+    fan_in, fan_out = 9 * cin, 9 * features
+    if kind == "float":
+        w = s.param(name, "kernel", _glorot_uniform(shape, fan_in, fan_out))
+    else:
+        kernel, h = _latent_kernel(s, name, shape, fan_in, fan_out, H,
+                                   kernel_lr_multiplier)
+        w = quantize_kernel(s, kind, kernel, h, **qkw)
+    y = conv(x, w)
+    return _bias(s, name, y, features) if use_bias else y
+
+
+def batch_norm(s: Scope, name: str, x: Array, *, momentum: float,
+               epsilon: float) -> Array:
+    """BatchNorm over every axis but the last.  Training normalises with
+    the batch statistics (var = E[x^2] - E[x]^2) and records the updated
+    running averages; evaluation uses the running averages.  The affine
+    form ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` is the one the
+    engines' float boundary layers and the BN fold reproduce."""
+    c = x.shape[-1]
+    scale = s.param(name, "scale", lambda _: jnp.ones((c,), jnp.float32))
+    bias = s.param(name, "bias", lambda _: jnp.zeros((c,), jnp.float32))
+    ra_mean = s.get("batch_stats", name, "mean",
+                    lambda _: jnp.zeros((c,), jnp.float32))
+    ra_var = s.get("batch_stats", name, "var",
+                   lambda _: jnp.ones((c,), jnp.float32))
+    if s.train:
+        axes = tuple(range(x.ndim - 1))
+        mean = jnp.mean(x, axes)
+        var = jnp.maximum(0.0, jnp.mean(jnp.square(x), axes)
+                          - jnp.square(mean))
+        s.update("batch_stats", name, "mean",
+                 momentum * ra_mean + (1.0 - momentum) * mean)
+        s.update("batch_stats", name, "var",
+                 momentum * ra_var + (1.0 - momentum) * var)
+    else:
+        mean, var = ra_mean, ra_var
+    mul = jax.lax.rsqrt(var + epsilon) * scale
+    return (x - mean) * mul + bias
+
+
+def dropout(s: Scope, x: Array, rate: float) -> Array:
+    """Inverted dropout in training mode (needs a ``dropout`` rng)."""
+    if not s.train or rate <= 0:
+        return x
+    if not s.has_rng("dropout"):
+        raise ValueError("dropout in training mode needs a 'dropout' rng "
+                         "(pass rng to train_step)")
+    keep = 1.0 - rate
+    mask = jax.random.bernoulli(s.make_rng("dropout"), keep, x.shape)
+    return jnp.where(mask, x / keep, 0.0)
+
+
+def max_pool2(x: Array) -> Array:
+    """2x2/2 'VALID' max pool (NHWC)."""
+    return jax.lax.reduce_window(x, -jnp.inf, jax.lax.max, (1, 2, 2, 1),
+                                 (1, 2, 2, 1), "VALID")
 
 
 def make_activation(name: str, abits: int = 1) -> Callable[[Array], Array]:

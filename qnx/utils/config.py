@@ -41,7 +41,7 @@ class Config:
     width: int = 128  # VGG base channel count (BinaryNet CIFAR: 128)
     dense_units: int = 1024  # VGG head width
     classes: int = 10
-    first_layer_float: bool = False  # float/int8-MXU first layer (CIFAR cfgs)
+    first_layer_float: bool = False  # float first layer (CIFAR cfgs)
     last_layer_float: bool = False
     use_bias: bool = False
     batch_norm_momentum: float = 0.9

@@ -1,27 +1,41 @@
-"""Bench harness modules: roofline report structure + scaling models.
+"""Bench harness modules: roofline report structure + the scaling check.
 
 These run on the CPU test mesh (timings are not rooflines there — the
-modules are validated structurally; real numbers come from the TPU runs
-recorded in BASELINE.md).
+modules are validated structurally; device numbers come from runs on the
+card).
 """
 import jax
 import numpy as np
+import pytest
 
-from qnx.bench.roofline import V5E_PEAKS, KernelResult
-from qnx.bench.scaling import (dp_efficiency_model, measure_virtual_mesh,
-                               tp_efficiency_model, vgg_layers)
+from qnx.bench.roofline import PEAKS, KernelResult, peaks_for
+from qnx.bench.scaling import measure_virtual_mesh, vgg_layers
+
+H100 = peaks_for("NVIDIA H100 80GB HBM3")
 
 
 def test_kernel_result_roofline_math():
     # 1 ms measured, SoL 0.5 ms compute-bound -> fraction 0.5
-    r = KernelResult("k", 1e-3, int(0.5e-3 * V5E_PEAKS["int8_macs"]),
-                     1000, "int8_macs")
+    r = KernelResult("k", 1e-3, int(0.5e-3 * H100["int8_macs"]),
+                     1000, "int8_macs", H100)
     assert r.bound == "compute"
     assert abs(r.row()["sol_fraction"] - 0.5) < 1e-6
     # memory-bound case
     r = KernelResult("k", 1e-3, 1000,
-                     int(0.5e-3 * V5E_PEAKS["hbm_bytes"]), "int8_macs")
+                     int(0.5e-3 * H100["hbm_bytes"]), "int8_macs", H100)
     assert r.bound == "memory"
+
+
+def test_peaks_are_the_h100_data_sheet():
+    assert H100["int8_macs"] * 2 == 1979e12
+    assert H100["bf16_macs"] * 2 == 989e12
+    assert H100["hbm_bytes"] == 3.35e12
+    assert all(set(p) == set(H100) for p in PEAKS.values())
+
+
+def test_unknown_device_has_no_peaks():
+    with pytest.raises(KeyError, match="no published peaks"):
+        peaks_for("cpu")
 
 
 def test_measure_kernels_smoke_tiny():
@@ -31,7 +45,8 @@ def test_measure_kernels_smoke_tiny():
     from qnx.bench.roofline import measure_kernels
 
     rows = measure_kernels(batch=32, iters=2, repeats=1, gemm_k=64, gemm_n=64,
-                           conv_shapes=[(8, 32, 32, True, "tiny")])
+                           conv_shapes=[(8, 32, 32, True, "tiny")],
+                           peaks=H100)
     names = [r.name for r in rows]
     assert any("xnor conv fused" in n for n in names)
     assert any("ternary conv fused" in n for n in names)
@@ -43,11 +58,11 @@ def test_measure_kernels_smoke_tiny():
 
 def test_float_baseline_matches_flax_model():
     """The benchmark's plain-XLA baseline forward must compute exactly the
-    flax float model.  The flax model pins true-f32 precision internally
-    while float_forward inherits the caller's context (that inheritance is
-    its entire reason to exist — bench.py sets the context per target), so
-    the comparison runs under default_matmul_precision('highest'); without
-    it, this fails on TPU where the default is bf16 MXU passes."""
+    float model.  The model pins true-f32 precision internally while
+    float_forward inherits the caller's context (that inheritance is its
+    entire reason to exist — bench.py sets the context per target), so the
+    comparison runs under default_matmul_precision('highest'); without it,
+    this fails on a GPU, where the default may use TF32."""
     import jax.numpy as jnp
 
     from qnx.bench.float_baseline import float_forward
@@ -114,21 +129,6 @@ def test_vgg_layer_macs_match_architecture():
     total = sum(h * w * 9 * cin * cout
                 for (h, w, cin, cout) in vgg_layers(128))
     assert abs(total - 603e6) / 603e6 < 0.01  # ~603M MACs/image (quant convs)
-
-
-def test_dp_model_no_collectives():
-    for n in (1, 8, 64):
-        r = dp_efficiency_model(n)
-        assert r["efficiency"] == 1.0  # compute > feed at batch 1024
-
-
-def test_tp_model_monotone_and_overlap_helps():
-    effs = [tp_efficiency_model(tp)["efficiency"] for tp in (1, 2, 4, 8)]
-    assert effs[0] == 1.0
-    assert all(a >= b for a, b in zip(effs, effs[1:]))
-    with_ov = tp_efficiency_model(8, overlap=True)
-    without = tp_efficiency_model(8, overlap=False)
-    assert with_ov["t_exposed_ms"] <= without["t_exposed_ms"]
 
 
 def test_virtual_mesh_exact_across_device_counts():

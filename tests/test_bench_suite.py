@@ -1,5 +1,5 @@
 """Per-config bench suite: structure smoke tests on CPU (timing is stubbed
-— real numbers come from the TPU run recorded in BASELINE.md)."""
+— device numbers come from runs on the card)."""
 import numpy as np
 
 import qnx.bench.suite as suite
@@ -20,7 +20,7 @@ def test_bench_mlp_rows(monkeypatch):
     _stub_timer(monkeypatch)
     cf = MNIST_BNN.replace(dim=64, num_hidden=1)
     rows = suite.bench_mlp(cf, "mnist-bnn", batch=8)
-    assert [r["config"] for r in rows] == ["mnist-bnn int8-mxu",
+    assert [r["config"] for r in rows] == ["mnist-bnn int8",
                                            "mnist-bnn popcount"]
     assert all(r["images_per_s"] == 8000.0 for r in rows)
 

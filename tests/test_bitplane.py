@@ -1,4 +1,4 @@
-"""Bit-plane path tests: plane GEMM kernel exactness, multi-level threshold
+"""Bit-plane path tests: plane GEMM formula exactness, multi-level threshold
 folding, and full n-bit-activation VGG parity (the CIFAR-10 TNN config)."""
 import jax
 import jax.numpy as jnp
@@ -7,9 +7,9 @@ import pytest
 
 from qnx.convert.pack_model import pack_vgg_bitplane
 from qnx.data.datasets import synthetic
-from qnx.kernels.plane_gemm import plane_gemm
 from qnx.ops import packing as P
 from qnx.ops.quant import quantized_relu
+from qnx.ops.reference import plane_gemm_ref as plane_gemm
 from qnx.train.loop import create_train_state, train_step
 from qnx.transforms.bn_fold import fold_bn_levels
 from qnx.utils.config import Config

@@ -1,4 +1,4 @@
-"""INT8-MXU engine parity: must agree bit-for-bit with the packed popcount
+"""int8 engine parity: must agree bit-for-bit with the packed popcount
 engine AND the fake-quant golden model on all config families."""
 import jax
 import jax.numpy as jnp
@@ -59,10 +59,8 @@ class TestInt8Vgg:
         """Channels with gamma < 0 flip the epilogue direction; pooling the
         epilogue codes must still match pooling-the-integers semantics.
         (Fresh training keeps gamma > 0, so we force negatives.)"""
-        import flax
-
         ds, variables, _ = _train(VGG_CF, (32, 32, 3))  # shared cache entry
-        variables = flax.core.unfreeze(jax.device_get(variables))
+        variables = jax.tree.map(np.array, variables)  # private copy
         for bn in ("bn_conv_1", "bn_conv_3", "bn_conv_5"):
             g = np.array(variables["params"][bn]["scale"])
             g[::2] = -np.abs(g[::2])  # half the channels negative
@@ -86,3 +84,16 @@ class TestInt8Vgg:
         i8 = pack_int8(variables, cf)
         out = np.asarray(i8_forward(i8, jnp.asarray(ds.x_test)))
         assert (np.argmax(out, -1) == np.argmax(gold, -1)).all()
+
+    def test_conv_sums_beyond_float32_rejected(self):
+        """The int8 conv returns float32 sums, exact below 2**24: an 8-bit
+        weight x 8-bit activation conv over 9*128 inputs can exceed that,
+        so conversion refuses it instead of rounding silently."""
+        from qnx.models.factory import init_model
+
+        cf = VGG_CF.replace(network_type="full-qnn", wbits=8, abits=8,
+                            width=32)
+        _, variables = init_model(cf, jax.random.PRNGKey(0))
+        with pytest.raises(ValueError, match="not exact"):
+            pack_int8(jax.device_get(variables), cf)
+        pack_int8(jax.device_get(variables), cf.replace(abits=4))  # fits

@@ -38,7 +38,7 @@ def _parse(stdout: str) -> dict:
 def test_two_process_bringup_matches_single_process():
     port = _free_port()
     env = {k: v for k, v in os.environ.items()
-           if k not in ("JAX_PLATFORMS", "XLA_FLAGS", "QNX_TEST_TPU")}
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS", "QNX_TEST_CHIP")}
     procs = [
         subprocess.Popen(
             [sys.executable, WORKER, str(port), str(pid), "2", "4"],

@@ -64,7 +64,7 @@ def test_xnor_gemm_matches_device_kernel(rng):
     """The host oracle and the Pallas kernel agree (independent paths)."""
     import jax.numpy as jnp
 
-    from qnx.kernels.xnor_gemm import xnor_gemm_popcount
+    from qnx.kernels.popcount import popcount_matmul
     from qnx.ops.packing import pack_bits
 
     k = 96
@@ -74,6 +74,6 @@ def test_xnor_gemm_matches_device_kernel(rng):
     w[w == 0] = 1
     xp = pack_bits(jnp.asarray(x), axis=-1)
     wp = pack_bits(jnp.asarray(w), axis=0)
-    dev = np.asarray(xnor_gemm_popcount(xp, wp, k))
+    dev = np.asarray(popcount_matmul(xp, wp, k))
     host = hostlib.xnor_gemm_host(np.asarray(xp), np.asarray(wp), k)
     np.testing.assert_array_equal(dev, host)

@@ -107,7 +107,7 @@ class TestBitplaneGemmRef:
 
 
 class TestPackBitsMxu:
-    """MXU dot-based pack must be bit-identical to the shift-sum pack."""
+    """Matmul-based pack must be bit-identical to the shift-sum pack."""
 
     def test_int8_codes(self):
         import numpy as np

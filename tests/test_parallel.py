@@ -12,8 +12,7 @@ from qnx.parallel.overlap import (allgather_gemm_overlapped,
                                   allgather_popcount_gemm)
 from qnx.parallel.sharding import packed_model_shardings, train_state_shardings
 
-needs_multi = pytest.mark.skipif(jax.device_count() < 8,
-                                 reason="needs 8 devices")
+needs_multi = pytest.mark.usefixtures("eight_devices")
 
 
 class TestMesh:
@@ -120,9 +119,9 @@ class TestShardedInference:
 
 class TestRingTPForward:
     """The serving-path consumer of the overlapped ring (VERDICT r4 Missing
-    #3): packed MLP/VGG forwards whose hidden/dense popcount GEMMs run as
-    per-shard Pallas kernels around a ppermute ring, bit-exact vs the
-    single-device forward."""
+    #3): packed MLP/VGG forwards whose hidden/dense popcount GEMMs run per
+    weight shard around a ppermute ring, bit-exact vs the single-device
+    forward."""
 
     @staticmethod
     def _train_packed_mlp(dim=128):
@@ -207,6 +206,7 @@ class TestRingTPForward:
         gold = np.asarray(mlp_forward(packed, jnp.asarray(imgs)))
         with ServeEngine(packed, batch_size=8, mesh=mesh) as eng:
             out = eng.predict(imgs)
+            assert eng.stats()["forward"] == "tp-ring"
         np.testing.assert_allclose(out, gold, atol=1e-5, rtol=1e-5)
 
     def test_tp_supported_guards(self):

@@ -71,6 +71,21 @@ class TestTernarize:
         w = jnp.array([-0.2, -0.05, 0.05, 0.15])
         np.testing.assert_allclose(Q.ternarize(w, H), jnp.array([-H, 0, 0, H]), atol=1e-7)
 
+    def test_tie_at_half_h_jitted_eager_and_packed(self):
+        """w = -H/2 and +H/2 exactly, H not a power of two: the jitted
+        program, the eager one and the converter's pattern all give -H and
+        0 (a jitted w/H once moved -H/2 to 0)."""
+        from qnx.convert.pack_model import _ternary_pattern
+
+        H = float(np.float32(0.013531646691262722))
+        w = jnp.asarray(np.float32(H) * np.float32([-0.5, 0.5]))
+        want = np.float32([-H, 0.0])
+        np.testing.assert_array_equal(Q.ternarize(w, H), want)
+        np.testing.assert_array_equal(
+            jax.jit(lambda a: Q.ternarize(a, H))(w), want)
+        pattern, _ = _ternary_pattern(np.asarray(w), H, "dingke")
+        np.testing.assert_array_equal(pattern, [-1.0, 0.0])
+
     def test_gradient_identity_inside(self):
         g = grad_at(Q.ternarize, [-0.7, -0.2, 0.2, 0.7])
         np.testing.assert_array_equal(g, jnp.ones(4))

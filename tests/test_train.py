@@ -1,7 +1,7 @@
 """Training-path tests: every network_type builds, steps, and learns.
 
-Small dims for CPU speed; the real configs are exercised on TPU via
-scripts/ and bench.py.
+Small dims for CPU speed; the real configs are exercised on the GPU by
+chip_smoke.py and bench.py.
 """
 import jax
 import jax.numpy as jnp

@@ -1,22 +1,18 @@
-"""Fused packed conv/dense kernels vs dense jnp golden references — exact
+"""Fused packed conv/dense layers vs dense jnp golden references — exact
 equality of the int8 output codes, including the zero-pad border correction,
 the threshold epilogue direction (sgn < 0 channels), and the fused maxpool
-(SURVEY.md §4.2 item 1). Off-TPU these run in interpreter mode."""
+(SURVEY.md §4.2 item 1). On the CPU the kernel runs in interpreter mode."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from qnx.kernels.popcount import popcount_matmul
 from qnx.kernels.xnor_conv import (
+    conv_codes,
     pack_conv_weights_np,
     pack_conv_ternary_np,
     padding_correction,
-)
-from qnx.kernels.xnor_conv_fused import (
-    ternary_conv_fused,
-    ternary_gemm_fused,
-    xnor_conv_fused,
-    xnor_gemm_fused,
 )
 from qnx.ops import packing as P
 
@@ -74,16 +70,16 @@ class TestXnorConvFused:
         wp, k = pack_conv_weights_np(wgt)
         corr = padding_correction(wgt, h, w)
 
-        out = xnor_conv_fused(xp, jnp.asarray(wp), k, jnp.asarray(corr),
-                              jnp.asarray(sgn), jnp.asarray(tau), pool=pool)
+        out = conv_codes(xp, jnp.asarray(wp), k, jnp.asarray(corr),
+                         jnp.asarray(sgn), jnp.asarray(tau), pool=pool)
         ref = conv_ref(jnp.asarray(x), jnp.asarray(wgt),
                        jnp.asarray(sgn), jnp.asarray(tau), pool)
         np.testing.assert_array_equal(out, ref)
 
     def test_blocked_grid(self):
-        """Mosaic-legal block_m/block_n smaller than the problem exercises
-        the grid and the row-periodic corr block cycling (corr period
-        hw=36 < block_m=72, so corr is tiled into the block)."""
+        """Several row and column tiles exercise the grid and the
+        row-periodic corr (period hw=36, or 9 pooled, is no multiple of
+        block_m=32, so blocks straddle image boundaries), with pooling."""
         b, h, w, c, n = 4, 6, 6, 64, 256
         key = jax.random.PRNGKey(0)
         kx, kw_, ke = jax.random.split(key, 3)
@@ -93,27 +89,12 @@ class TestXnorConvFused:
         xp = P.pack_bits(jnp.asarray(x), axis=-1)
         wp, k = pack_conv_weights_np(wgt)
         corr = padding_correction(wgt, h, w)
-        out = xnor_conv_fused(xp, jnp.asarray(wp), k, jnp.asarray(corr),
-                              jnp.asarray(sgn), jnp.asarray(tau),
-                              block_m=72, block_n=128)
-        ref = conv_ref(jnp.asarray(x), jnp.asarray(wgt),
-                       jnp.asarray(sgn), jnp.asarray(tau), False)
-        np.testing.assert_array_equal(out, ref)
-
-    def test_mosaic_illegal_block_rejected(self):
-        b, h, w, c, n = 4, 6, 6, 64, 96
-        key = jax.random.PRNGKey(0)
-        kx, kw_, ke = jax.random.split(key, 3)
-        x = rand_pm1(kx, (b, h, w, c))
-        wgt = rand_pm1(kw_, (3, 3, c, n))
-        sgn, tau = epilogue_params(ke, n)
-        xp = P.pack_bits(jnp.asarray(x), axis=-1)
-        wp, k = pack_conv_weights_np(wgt)
-        corr = padding_correction(wgt, h, w)
-        with pytest.raises(ValueError, match="block_m"):
-            xnor_conv_fused(xp, jnp.asarray(wp), k, jnp.asarray(corr),
-                            jnp.asarray(sgn), jnp.asarray(tau),
-                            block_m=12, block_n=32)
+        for pool in (False, True):
+            out = conv_codes(xp, jnp.asarray(wp), k, jnp.asarray(corr),
+                             jnp.asarray(sgn), jnp.asarray(tau), pool=pool)
+            ref = conv_ref(jnp.asarray(x), jnp.asarray(wgt),
+                           jnp.asarray(sgn), jnp.asarray(tau), pool)
+            np.testing.assert_array_equal(out, ref)
 
 
 class TestTernaryConvFused:
@@ -129,9 +110,10 @@ class TestTernaryConvFused:
         mask, sign, nnz = pack_conv_ternary_np(wgt)
         corr = padding_correction(wgt, h, w)
 
-        out = ternary_conv_fused(
-            xp, jnp.asarray(mask), jnp.asarray(sign), jnp.asarray(nnz),
-            jnp.asarray(corr), jnp.asarray(sgn), jnp.asarray(tau), pool=pool)
+        out = conv_codes(
+            xp, jnp.asarray(mask), jnp.asarray(nnz), jnp.asarray(corr),
+            jnp.asarray(sgn), jnp.asarray(tau), sign=jnp.asarray(sign),
+            pool=pool)
         ref = conv_ref(jnp.asarray(x), jnp.asarray(wgt),
                        jnp.asarray(sgn), jnp.asarray(tau), pool)
         np.testing.assert_array_equal(out, ref)
@@ -145,9 +127,9 @@ class TestGemmFused:
         x = rand_pm1(kx, (m, k)).astype(np.float32)
         w = rand_pm1(kw_, (k, n)).astype(np.float32)
         sgn, tau = epilogue_params(ke, n, -10, 10)
-        out = xnor_gemm_fused(P.pack_bits(jnp.asarray(x), -1),
+        out = popcount_matmul(P.pack_bits(jnp.asarray(x), -1),
                               P.pack_bits(jnp.asarray(w), 0), k,
-                              jnp.asarray(sgn), jnp.asarray(tau))
+                              sgn=jnp.asarray(sgn), tau=jnp.asarray(tau))
         s = (x @ w).astype(np.int32)
         ref = np.where(sgn[None, :] * s >= tau[None, :], 1, -1).astype(np.int8)
         np.testing.assert_array_equal(out, ref)
@@ -160,10 +142,10 @@ class TestGemmFused:
         w = rand_tern(kw_, (k, n)).astype(np.float32)
         sgn, tau = epilogue_params(ke, n, -10, 10)
         mask, sign, nnz = P.pack_ternary_np(w, axis=0)
-        out = ternary_gemm_fused(
+        out = popcount_matmul(
             P.pack_bits(jnp.asarray(x), -1), jnp.asarray(mask),
-            jnp.asarray(sign), jnp.asarray(nnz),
-            jnp.asarray(sgn), jnp.asarray(tau))
+            jnp.asarray(nnz), sign=jnp.asarray(sign),
+            sgn=jnp.asarray(sgn), tau=jnp.asarray(tau))
         s = (x @ w).astype(np.int32)
         ref = np.where(sgn[None, :] * s >= tau[None, :], 1, -1).astype(np.int8)
         np.testing.assert_array_equal(out, ref)
